@@ -1,0 +1,342 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (hockey_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each announced on its own line with the elapsed seconds:
+
+1. card: name and power limit from nvidia-smi;
+2. build: nvcc builds the NMS suppression kernel from
+   hockey_tpu_torch/csrc/nms_suppress.cu;
+3. kernel: the kernel against its plain PyTorch version on the card
+   (seeded IoU and containment matrices at B=8, K=256, ties, all-invalid,
+   K=100), bit for bit, with kernel and plain times;
+4. main path: the shipped YOLOv8x player model in bf16 on 1080p frames
+   (736x1280 network input) through VideoProcessor.detect_frames, three
+   batches of 8 seeded synthetic frames; the kernel's launch count over
+   that run must be at least 3; the last batch goes again through the
+   detect step's two halves (`candidates`, `finish`), where the kernel's
+   and the plain suppression's kept sets on those candidates must be
+   equal and the kernel's half must give the main path's detections; two
+   frames are held against an f32 CPU run of the same detector;
+5. the kernel table as one JSON line, then the result line.
+
+Any failure raises and exits non-zero. Without CUDA, or without the
+hockey_tpu_torch package beside it, it exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from hockey_tpu_torch.core.config import Config  # noqa: E402
+from hockey_tpu_torch.models.detector import Detector, HostDetections  # noqa: E402
+from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
+from hockey_tpu_torch.ops.nms import suppression_matrix  # noqa: E402
+from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
+    build_library,
+    suppress,
+    suppress_reference,
+)
+from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
+
+FRAME_HW = (1080, 1920)
+BATCH = 8
+N_BATCHES = 3
+# H100 SXM peaks (NVIDIA data sheet) for the bound of the suppression
+# kernel: it moves f32 matrix rows and does f32 comparisons
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def phase(name: str) -> None:
+    print(f"== [{time.perf_counter() - T0:7.1f} s] {name}", flush=True)
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------------
+# synthetic 1080p frames: ellipse-figure players on a rink, numpy only
+
+def _ellipse(img, cx, cy, ax, ay, color):
+    h, w = img.shape[:2]
+    x0, x1 = max(int(cx - ax), 0), min(int(cx + ax) + 1, w)
+    y0, y1 = max(int(cy - ay), 0), min(int(cy + ay) + 1, h)
+    if x0 >= x1 or y0 >= y1:
+        return
+    yy, xx = np.ogrid[y0:y1, x0:x1]
+    img[y0:y1, x0:x1][((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1.0] = color
+
+
+def _player(img, fx, fy, hpx, jersey, pants):
+    bw = 0.42 * hpx
+    for s in (-1, 1):
+        _ellipse(img, fx + s * 0.2 * bw, fy - 0.16 * hpx, 0.14 * bw, 0.17 * hpx, (38, 38, 42))
+        _ellipse(img, fx + s * 0.2 * bw, fy - 0.03 * hpx, 0.22 * bw, 0.03 * hpx, (24, 24, 28))
+    _ellipse(img, fx, fy - 0.50 * hpx, 0.55 * bw, 0.11 * hpx, pants)
+    _ellipse(img, fx, fy - 0.66 * hpx, 0.5 * bw, 0.2 * hpx, jersey)
+    for s in (-1, 1):
+        _ellipse(img, fx + s * 0.55 * bw, fy - 0.62 * hpx, 0.13 * bw, 0.16 * hpx, jersey)
+    _ellipse(img, fx, fy - 0.9 * hpx, 0.2 * bw, 0.08 * hpx, (150, 150, 150))
+
+
+def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
+    """(n, 1080, 1920, 3) uint8 BGR: white rink, lines, skating players."""
+    rng = np.random.default_rng(seed)
+    h, w = FRAME_HW
+    base = np.full((h, w, 3), 228, np.uint8)
+    base[..., 0] = 236
+    base[:, w // 2 - 6:w // 2 + 6] = (40, 40, 200)
+    for x in (w // 3, 2 * w // 3):
+        base[:, x - 8:x + 8] = (200, 90, 30)
+    base[:int(0.18 * h)] = (60, 70, 80)
+    teams = [((200, 160, 40), (40, 40, 40)), ((30, 30, 200), (230, 230, 230))]
+    foot = rng.uniform([150, 0.4 * h], [w - 150, h - 40], (players, 2))
+    vel = rng.uniform(-10, 10, (players, 2))
+    size = rng.uniform(150, 230, players)
+    out = np.empty((n, h, w, 3), np.uint8)
+    for t in range(n):
+        f = base.copy()
+        for j in np.argsort(foot[:, 1]):
+            fx, fy = foot[j] + vel[j] * t
+            _player(f, fx, fy, size[j] * (0.6 + 0.4 * fy / h), *teams[j % 2])
+        out[t] = f
+    return out
+
+
+# --------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def kernel_cases(dev):
+    """(name, matrix, keep0, thr) cases for kernel-vs-plain on the card."""
+    rng = np.random.default_rng(0)
+
+    def boxes(b, k):
+        xy = rng.uniform(0, 1100, (b, k, 2))
+        wh = rng.uniform(20, 200, (b, k, 2))
+        cls = rng.integers(0, 2, (b, k, 1))
+        bx = np.concatenate([xy, xy + wh], -1) + cls * 1e4
+        return torch.tensor(bx, dtype=torch.float32, device=dev)
+
+    def keep(b, k, p=0.9):
+        return torch.tensor(rng.uniform(size=(b, k)) < p, device=dev)
+
+    b8 = boxes(8, 256)
+    cont, cont_thr = suppression_matrix(b8, 0.45, 0.5)
+    dup = boxes(8, 128).repeat_interleave(2, dim=1)  # every box twice
+    quant = torch.round(box_iou(dup, dup) * 4) / 4   # entries exactly at thr
+    b100 = boxes(8, 100)
+    return [
+        ("iou B=8 K=256", box_iou(b8, b8), keep(8, 256), 0.45),
+        ("containment B=8 K=256", cont.contiguous(), keep(8, 256), cont_thr),
+        ("ties B=8 K=256", quant.contiguous(), keep(8, 256), 0.5),
+        ("all-invalid B=8 K=256", box_iou(b8, b8),
+         torch.zeros(8, 256, dtype=torch.bool, device=dev), 0.45),
+        ("iou B=8 K=100", box_iou(b100, b100), keep(8, 100), 0.45),
+    ]
+
+
+def match_fraction(a, b, iou_min=0.8):
+    """Fraction of the detections in `a` that have a same-class detection
+    in `b` with IoU >= iou_min (HostDetections on the host)."""
+    if len(a) == 0:
+        return 1.0
+    if len(b) == 0:
+        return 0.0
+    iou = box_iou(torch.from_numpy(a.boxes), torch.from_numpy(b.boxes)).numpy()
+    same = a.classes[:, None] == b.classes[None, :]
+    return float(((iou >= iou_min) & same).any(axis=1).mean())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    phase("1 card")
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device {kind}", flush=True)
+
+    phase("2 build nms_suppress (nvcc, sm_90a)")
+    t = time.perf_counter()
+    lib = build_library()
+    suppress.load()
+    print(f"built {os.path.relpath(lib, ROOT)} in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    phase("3 kernel vs plain on the card")
+    max_err = 0.0
+    for name, m, keep0, thr in kernel_cases(dev):
+        got = suppress(m, keep0, thr)
+        ref = suppress_reference(m, keep0, thr)
+        torch.cuda.synchronize()
+        err = float((got.int() - ref.int()).abs().max())
+        max_err = max(max_err, err)
+        print(f"{name}: kept {int(got.sum())} of {int(keep0.sum())}, "
+              f"bit-equal {torch.equal(got, ref)}", flush=True)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"kernel != plain version on {name}")
+    _, m, keep0, thr = kernel_cases(dev)[1]
+    rand_ms = time_ms(lambda: suppress(m, keep0, thr), 200)
+    rand_plain_ms = time_ms(lambda: suppress_reference(m, keep0, thr), 10)
+    print(f"B=8 K=256 containment (random boxes): kernel {rand_ms:.4f} ms, "
+          f"plain {rand_plain_ms:.3f} ms; library call: none (no single "
+          f"PyTorch op computes greedy suppression)", flush=True)
+
+    phase("4 main path: YOLOv8x bf16, 1080p -> 736x1280, VideoProcessor.detect_frames")
+    t = time.perf_counter()
+    config = Config()
+    det = Detector(config.player_model_name, config, frame_hw=FRAME_HW,
+                   device="cuda", dtype=torch.bfloat16)
+    vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                        player_detector=det)
+    frames = synthetic_frames(seed=0, n=BATCH * N_BATCHES)
+    print(f"detector ready in {time.perf_counter() - t:.2f} s "
+          f"(imgsz {det.imgsz}, frame batch "
+          f"{config.resolved_frame_batch(dev)})", flush=True)
+    if config.resolved_frame_batch(dev) != BATCH:
+        raise AssertionError("frame batch is not the smoke run's batch")
+
+    torch.cuda.reset_peak_memory_stats()
+    suppress.launches = 0
+    dets, marks = [], []
+    t = time.perf_counter()
+    for d in vp.detect_frames(iter(frames)):
+        dets.append(d)
+        if len(dets) % BATCH == 0:
+            marks.append(time.perf_counter())
+    launches = suppress.launches
+    batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
+    steady_fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+    per_frame = [len(d) for d in dets]
+    print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
+    print(f"frames/s after the first batch: {steady_fps:.2f}", flush=True)
+    print(f"detections per frame: {per_frame}", flush=True)
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"nms_suppress launches over the main path: {launches}", flush=True)
+    if len(dets) != BATCH * N_BATCHES:
+        raise AssertionError(f"{len(dets)} frames out, {BATCH * N_BATCHES} in")
+    if launches < N_BATCHES:
+        raise AssertionError(f"kernel launched {launches} times, < {N_BATCHES}")
+    h, w = FRAME_HW
+    for d in dets:
+        if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()):
+            raise AssertionError("non-finite detections")
+        if len(d) and ((d.boxes < 0).any() or (d.boxes[:, [0, 2]] > w).any()
+                       or (d.boxes[:, [1, 3]] > h).any()
+                       or (d.scores <= config.detection_confidence).any()):
+            raise AssertionError("detections outside the frame or threshold")
+    if sum(per_frame) == 0:
+        raise AssertionError("no detections on the synthetic frames")
+
+    # the last batch again through the detect step's two halves: the
+    # candidates, then the kept set by the kernel and by the plain
+    # suppression on that one set of device tensors; the kept sets must be
+    # equal, and the kernel's half must give the main path's detections
+    last = torch.as_tensor(frames[-BATCH:]).to(dev)
+    with torch.inference_mode():
+        cand = det.core.candidates(det.model, last)
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+        again = det.core.finish(cand, keep_k)
+    torch.cuda.synchronize()
+    same = torch.equal(keep_k, keep_r)
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
+    print(f"main-path NMS, last batch: kept {keep_k.sum(1).tolist()} of "
+          f"{cand.keep0.sum(1).tolist()} candidates; kernel kept set == plain "
+          f"kept set: {same}", flush=True)
+    if not same:
+        raise AssertionError("main-path kept sets differ from the plain version")
+    for i, d in enumerate(dets[-BATCH:]):
+        h_again = vp._filter(HostDetections.from_padded(again, i))
+        if not all(np.array_equal(x, y) for x, y in zip(h_again, d)):
+            raise AssertionError(f"the halves differ from the main path, frame {i}")
+    print("candidates + kernel + finish == detect_frames on the last batch: True",
+          flush=True)
+    main_ms = time_ms(lambda: suppress(cand.matrix, cand.keep0, cand.thr), 200)
+    main_plain_ms = time_ms(
+        lambda: suppress_reference(cand.matrix, cand.keep0, cand.thr), 10)
+    # bound: each kept candidate's row tail M[i, i+1:] must be read and
+    # compared; keep0 read and keep written once
+    b, k = cand.keep0.shape
+    tail = (k - 1 - torch.arange(k, device=dev))
+    elems = int((keep_r * tail).sum())
+    bytes_moved = 4 * elems + 2 * b * k
+    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, elems / F32_OPS_PER_S)
+    print(f"main-path NMS B={b} K={k}: kernel {main_ms:.4f} ms, plain "
+          f"{main_plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bytes_moved} bytes)", flush=True)
+
+    # reference: the same detector in f32 on the CPU (plain suppression),
+    # two frames; bf16 on the card must find the same players
+    t = time.perf_counter()
+    ref_det = Detector(config.player_model_name, config, frame_hw=FRAME_HW,
+                       device="cpu", dtype=torch.float32)
+    ref_vp = VideoProcessor(config, device="cpu", frame_hw=FRAME_HW,
+                            player_detector=ref_det)
+    ref = list(ref_vp.detect_frames(iter(frames[:2])))
+    fwd = min(match_fraction(r, d) for r, d in zip(ref, dets[:2]))
+    bwd = min(match_fraction(d, r) for r, d in zip(ref, dets[:2]))
+    print(f"f32 CPU reference ({time.perf_counter() - t:.1f} s): detections "
+          f"{[len(r) for r in ref]} vs card {per_frame[:2]}; matched at IoU>=0.8 "
+          f"ref->card {fwd:.3f}, card->ref {bwd:.3f}", flush=True)
+    if min(fwd, bwd) < 0.8:
+        raise AssertionError("bf16 card detections disagree with the f32 reference")
+
+    phase("5 results")
+    print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "nms_suppress",
+        "route": "cuda",
+        "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
+        "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main_ms,
+        "plain_ms": main_plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S
+        >= elems / F32_OPS_PER_S else "operations",
+        "library_ms": None,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

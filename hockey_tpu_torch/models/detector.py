@@ -1,0 +1,173 @@
+"""The detection step: letterbox -> YOLOv8 -> DFL decode -> NMS -> box
+un-mapping over a frame batch. Port of hockey_tpu/models/detector.py
+(`HostDetections`, `_unmap_boxes`, `_build_detect_core` as `DetectCore`,
+`Detector`) for the PLAYER_DETECTION path.
+
+The frames cross to the device once per batch and the fixed-size padded
+detections come back once; NMS suppression runs in the CUDA kernel of
+ops/nms_kernel.py on a CUDA device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core.config import Config
+from ..core.device import resolve_device
+from ..ops.letterbox import letterbox_rect_batch, rect_letterbox_params, rect_shape
+from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
+from ..ops.nms_kernel import suppress
+from .checkpoint import load_params, shipped_weights_path
+from .layers import fuse_for_inference
+from .yolov8 import MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes, forward_raw
+
+
+class HostDetections(NamedTuple):
+    """Numpy view of one frame's detections in original-frame coordinates."""
+
+    boxes: np.ndarray    # (n, 4) xyxy float32
+    scores: np.ndarray   # (n,)
+    classes: np.ndarray  # (n,) int32
+
+    def __len__(self) -> int:
+        return len(self.boxes)
+
+    @staticmethod
+    def from_padded(det: Detections, i: int) -> "HostDetections":
+        valid = det.valid[i].cpu().numpy()
+        return HostDetections(
+            boxes=det.boxes[i].cpu().numpy()[valid],
+            scores=det.scores[i].cpu().numpy()[valid],
+            classes=det.classes[i].cpu().numpy()[valid],
+        )
+
+
+def _unmap_boxes(boxes: torch.Tensor, h: int, w: int, imgsz: int) -> torch.Tensor:
+    """Minimal-rectangle letterboxed xyxy -> original-frame xyxy, clipped
+    to the frame."""
+    r, _, _, pad_top, pad_left, _, _ = rect_letterbox_params(h, w, imgsz)
+    pad = torch.tensor([pad_left, pad_top, pad_left, pad_top],
+                       dtype=boxes.dtype, device=boxes.device)
+    out = (boxes - pad) / r
+    hi = torch.tensor([w, h, w, h], dtype=out.dtype, device=out.device)
+    return torch.clamp(out, min=torch.zeros_like(hi), max=hi)
+
+
+class DetectCore:
+    """(model, frames (B, H, W, 3) uint8 on the device) -> padded
+    Detections in original-frame coordinates (hockey_tpu
+    detector.py:75-126 with its default rect=True, without the keypoint
+    and team branches). Frames are letterboxed to the minimal stride-32
+    rectangle (736x1280 for 1080p at 1280), as ultralytics predict does.
+
+    The step is two halves around the suppression kernel: `candidates`
+    (letterbox -> forward -> decode -> class max -> top-K and suppression
+    matrix) and `finish` (selection and un-mapping of the kept set). Each
+    stage is a `torch.profiler.record_function` range, so a profiler
+    trace splits the step by stage."""
+
+    def __init__(self, cfg: YoloConfig, *, imgsz: int,
+                 frame_hw: Tuple[int, int], conf: float, iou: float = 0.45,
+                 containment: float = 0.0, pre_topk: int = 256,
+                 max_det: int = 64, dtype=torch.bfloat16):
+        self.cfg, self.imgsz, self.frame_hw = cfg, imgsz, frame_hw
+        self.conf, self.iou, self.containment = conf, iou, containment
+        self.pre_topk, self.max_det, self.dtype = pre_topk, max_det, dtype
+        self.in_hw = rect_shape(*frame_hw, imgsz)
+
+    def candidates(self, model: YOLOv8, frames: torch.Tensor) -> Candidates:
+        with record_function("letterbox"):
+            x = letterbox_rect_batch(frames, self.imgsz, 32, self.dtype)
+        with record_function("forward"):
+            raw = forward_raw(model, x)
+        with record_function("decode"):
+            boxes, scores = decode_boxes(raw, self.cfg, self.in_hw)
+            max_scores, classes = torch.max(scores, dim=-1)
+        with record_function("nms_candidates"):
+            return nms_candidates(
+                boxes, max_scores, classes.int(), score_threshold=self.conf,
+                iou_threshold=self.iou, containment_threshold=self.containment,
+                pre_topk=self.pre_topk)
+
+    def finish(self, cand: Candidates, keep: torch.Tensor) -> Detections:
+        with record_function("nms_select_unmap"):
+            det = nms_select(cand, keep, score_threshold=self.conf,
+                             max_det=self.max_det)
+            return det._replace(boxes=_unmap_boxes(det.boxes, *self.frame_hw,
+                                                   self.imgsz))
+
+    def __call__(self, model: YOLOv8, frames: torch.Tensor) -> Detections:
+        c = self.candidates(model, frames)
+        with record_function("nms_suppress"):
+            keep = suppress(c.matrix, c.keep0, c.thr)
+        return self.finish(c, keep)
+
+
+class Detector:
+    """Host-facing detector: owns the model and the detect step.
+
+    Weights: `checkpoint` if given, else the JAX package's shipped
+    checkpoint for `model_name`. `fuse` folds BN; the model runs in
+    `dtype` (bf16 on CUDA, f32 on the CPU by default)."""
+
+    def __init__(
+        self,
+        model_name: str,
+        config: Optional[Config] = None,
+        *,
+        frame_hw: Tuple[int, int] = (1080, 1920),
+        checkpoint: Optional[str] = None,
+        imgsz: Optional[int] = None,
+        conf: Optional[float] = None,
+        max_det: Optional[int] = None,
+        fuse: bool = True,
+        device="cuda",
+        dtype: Optional[torch.dtype] = None,
+        with_team_features: bool = False,
+    ):
+        if with_team_features:
+            raise NotImplementedError(
+                "fused team features are a later slice of the port; see "
+                "ROADMAP.md 'Team features and TEAM_CLASSIFICATION'")
+        self.device = resolve_device(device)
+        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda"
+                               else torch.float32)
+        self.config = config or Config()
+        self.cfg = MODEL_ZOO[model_name]
+        self.imgsz = imgsz or self.config.detection_imgsz
+        self.conf = conf if conf is not None else self.config.detection_confidence
+        self.frame_hw = frame_hw
+        self.max_det = max_det or self.config.max_detections
+        path = checkpoint or shipped_weights_path(model_name)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint for {model_name!r}")
+        model = build_model(self.cfg, load_params(path))
+        model = fuse_for_inference(model, self.dtype) if fuse else model.to(self.dtype)
+        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self.core = DetectCore(
+            self.cfg,
+            imgsz=self.imgsz,
+            frame_hw=frame_hw,
+            conf=self.conf,
+            iou=self.config.nms_iou_threshold,
+            containment=self.config.nms_containment_threshold,
+            pre_topk=self.config.nms_pre_topk,
+            max_det=self.max_det,
+            dtype=self.dtype,
+        )
+
+    def detect_batch(self, frames) -> Detections:
+        """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
+        detector's device."""
+        with record_function("upload"):
+            x = torch.as_tensor(frames).to(self.device)
+        with torch.inference_mode():
+            return self.core(self.model, x)
+
+    def detect(self, frame: np.ndarray) -> HostDetections:
+        """Single frame -> host-side unpadded detections."""
+        return HostDetections.from_padded(self.detect_batch(frame[None]), 0)

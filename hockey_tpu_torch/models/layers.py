@@ -1,0 +1,141 @@
+"""YOLOv8 building blocks as inference-only `nn.Module`s.
+
+Port of hockey_tpu/models/layers.py. Parameter names mirror the JAX
+package's parameter tree (`w`, `b`, `bn.{scale,bias,mean,var}`, a C2f's
+`m.<i>`), so a JAX tree loads by name through `params_from_jax`
+(models/yolov8.py). Kernels are OIHW here (the JAX package keeps HWIO);
+the model runs NCHW-shaped tensors in channels_last memory, which is the
+JAX package's NHWC byte order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3  # ultralytics BatchNorm2d eps (hockey_tpu layers.py:111)
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    return max(divisor, int(np.ceil(x / divisor) * divisor)) if x > 0 else 0
+
+
+class BatchNorm(nn.Module):
+    """Running statistics of one conv's BatchNorm (inference only)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(c))
+        self.register_buffer("bias", torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def folded(self):
+        """(scale', bias') with y_bn = y * scale' + bias'."""
+        scale = self.scale * torch.rsqrt(self.var + BN_EPS)
+        return scale, self.bias - self.mean * scale
+
+
+class Conv(nn.Module):
+    """Conv -> BN -> SiLU with symmetric k//2 padding
+    (hockey_tpu layers.py:94-108 `_conv2d` + `conv_apply`)."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
+                 bn: bool = True, bias: bool = False, act: bool = True):
+        super().__init__()
+        self.stride, self.pad, self.act = stride, k // 2, act
+        self.register_buffer("w", torch.zeros(cout, cin, k, k))
+        self.bn = BatchNorm(cout) if bn else None
+        self.register_buffer("b", torch.zeros(cout) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x, self.w, self.b, self.stride, self.pad)
+        if self.bn is not None:
+            scale, bias = self.bn.folded()
+            y = (y * scale.to(y.dtype)[:, None, None]
+                 + bias.to(y.dtype)[:, None, None])
+        return F.silu(y) if self.act else y
+
+
+def fuse_conv_bn(conv: Conv) -> Conv:
+    """Fold the BN into the kernel and bias in place: y = conv(x, w') + b'
+    (hockey_tpu layers.py:fuse_conv_bn)."""
+    if conv.bn is None:
+        return conv
+    scale, bias = conv.bn.folded()
+    conv.w = conv.w * scale[:, None, None, None]
+    conv.b = bias if conv.b is None else conv.b * scale + bias
+    conv.bn = None
+    return conv
+
+
+def fuse_model(model: nn.Module) -> nn.Module:
+    """Fold every Conv's BN in place; returns `model`."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            fuse_conv_bn(m)
+    return model
+
+
+def fuse_for_inference(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Fold BN, then cast every weight to the compute dtype once, so no
+    forward pass re-reads f32 masters (hockey_tpu layers.py:164-176)."""
+    return fuse_model(model).to(dtype)
+
+
+class Bottleneck(nn.Module):
+    """Two 3x3 convs with an optional residual (`add` is structural)."""
+
+    def __init__(self, cin: int, cout: int, add: bool, e: float = 1.0):
+        super().__init__()
+        ch = int(cout * e)
+        self.cv1 = Conv(cin, ch, 3)
+        self.cv2 = Conv(ch, cout, 3)
+        self.add = add
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Split-transform-concat block (YOLOv8's CSP variant)."""
+
+    def __init__(self, cin: int, cout: int, n: int, shortcut: bool):
+        super().__init__()
+        ch = cout // 2
+        self.cv1 = Conv(cin, 2 * ch, 1)
+        self.cv2 = Conv((2 + n) * ch, cout, 1)
+        self.m = nn.ModuleList(Bottleneck(ch, ch, shortcut) for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).chunk(2, dim=1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling, fast: three chained 5x5 max-pools with
+    -inf padding (hockey_tpu layers.py:234-240; max_pool2d pads with -inf)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        ch = cin // 2
+        self.cv1 = Conv(cin, ch, 1)
+        self.cv2 = Conv(ch * 4, cout, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        y1 = F.max_pool2d(y, 5, 1, 2)
+        y2 = F.max_pool2d(y1, 5, 1, 2)
+        y3 = F.max_pool2d(y2, 5, 1, 2)
+        return self.cv2(torch.cat([y, y1, y2, y3], dim=1))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+

@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: hockey_tpu_torch imports neither JAX nor
+the JAX package, builds no kernel through torch.utils.cpp_extension, and
+everything chip_smoke.py imports also loads without cv2, msgpack or
+sklearn (the GPU machine has none of them)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "hockey_tpu_torch")
+
+_PRELUDE = """
+import sys
+blocked = set(sys.argv[1].split(","))
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in blocked:
+            raise ImportError("blocked import: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[2])
+"""
+
+_IMPORT_PACKAGE = """
+import importlib, pkgutil
+import hockey_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(hockey_tpu_torch.__path__,
+                                               "hockey_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+print(len(names))
+"""
+
+_IMPORT_SMOKE = """
+import chip_smoke
+print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
+"""
+
+_CHECK = """
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
+assert not leaked, leaked
+"""
+
+CASES = {
+    "package_without_jax": (("jax", "flax", "optax", "hockey_tpu"),
+                            _IMPORT_PACKAGE),
+    "chip_smoke_closure": (("jax", "flax", "optax", "hockey_tpu", "cv2",
+                            "msgpack", "sklearn"), _IMPORT_SMOKE),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_imports_with_blocked_modules(case):
+    blocked, body = CASES[case]
+    proc = subprocess.run(
+        [sys.executable, "-c", _PRELUDE + body + _CHECK, ",".join(blocked), ROOT],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 10  # the modules really loaded
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|hockey_tpu)(\.|\s|$)|cpp_extension",
+    re.MULTILINE)
+
+
+def _sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu")):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_name_no_forbidden_import():
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+    assert not hits, hits

@@ -8,9 +8,13 @@ Phases, each announced on its own line with the elapsed seconds:
 1. card: name and power limit from nvidia-smi;
 2. build: nvcc builds the NMS suppression kernel from
    hockey_tpu_torch/csrc/nms_suppress.cu;
-3. kernel: the kernel against its plain PyTorch version on the card
-   (seeded IoU and containment matrices at B=8, K=256, ties, all-invalid,
-   K=100), bit for bit, with kernel and plain times;
+3. kernel: the kernel against its plain PyTorch version on the card,
+   bit for bit, on the seeded cases of `kernel_cases` (IoU and containment
+   matrices at B=8, K=256, ties, all-invalid, K=100, and the bitmask's
+   edges: K=1, K=33, K=1024, B=1, all overlapping, NaN entries); on the
+   dense containment case, the kernel's device time per launch (from a
+   torch.profiler trace), the wrapper's call time (CUDA events over
+   back-to-back calls), the plain version's time and the bound;
 4. main path: the shipped YOLOv8x player model in bf16 on 1080p frames
    (736x1280 network input) through VideoProcessor.detect_frames, three
    batches of 8 seeded synthetic frames; the kernel's launch count over
@@ -18,7 +22,9 @@ Phases, each announced on its own line with the elapsed seconds:
    detect step's two halves (`candidates`, `finish`), where the kernel's
    and the plain suppression's kept sets on those candidates must be
    equal and the kernel's half must give the main path's detections; two
-   frames are held against an f32 CPU run of the same detector;
+   frames are held against an f32 CPU run of the same detector; the
+   kernel's device time per launch, call time, plain time and bound on
+   the main path's own candidates;
 5. the kernel table as one JSON line, then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
@@ -37,6 +43,8 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from hockey_tpu_torch.core.config import Config  # noqa: E402
 from hockey_tpu_torch.models.detector import Detector, HostDetections  # noqa: E402
@@ -56,6 +64,7 @@ N_BATCHES = 3
 # kernel: it moves f32 matrix rows and does f32 comparisons
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+KERNEL_NAME = "nms_suppress_kernel"  # the CUDA kernel's name in a trace
 
 
 def phase(name: str) -> None:
@@ -63,7 +72,9 @@ def phase(name: str) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    """Time per call of fn() over `iters` back-to-back calls, by CUDA
+    events. Where a call takes the host longer than the device, this is
+    the call rate, not the device time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -74,6 +85,77 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, launches: int = 50, kernel: str = KERNEL_NAME):
+    """(device ms per launch, how) of the CUDA kernel whose name holds
+    `kernel`, over `launches` calls of fn: the mean of the kernel's own
+    durations in a torch.profiler trace ("profiler"; the trace may miss a
+    launch at the edge of its window), or, where the trace holds none of
+    them, `queued_ms` ("events")."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if not count:
+        return queued_ms(fn, launches), "events"
+    if count > launches:
+        raise AssertionError(f"{count} {kernel} launches traced, {launches} made")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count, "profiler"
+
+
+def queued_ms(fn, launches: int = 50) -> float:
+    """Device ms per call of fn() by CUDA events around `launches` calls
+    that the host queues while the device sleeps, so that they run back to
+    back and the host's call rate does not set the pace."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms of device clock cycles
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("the device woke before the host had queued "
+                             "the launches")
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def suppress_bound(keep: torch.Tensor):
+    """(bound ms, bytes, operations) of suppression with kept set `keep`
+    (B, K): each kept candidate's row tail M[i, i+1:] read and compared,
+    keep0 read and keep written once."""
+    b, k = keep.shape
+    tail = k - 1 - torch.arange(k, device=keep.device)
+    elems = int((keep * tail).sum())
+    nbytes = 4 * elems + 2 * b * k
+    return (1e3 * max(nbytes / HBM_BYTES_PER_S, elems / F32_OPS_PER_S),
+            nbytes, elems)
+
+
+def time_kernel(label, m, keep0, thr):
+    """Kernel device ms, call ms, plain ms and bound on one input, printed
+    on one line and returned under the kernel table's keys."""
+    ms, how = device_ms(lambda: suppress(m, keep0, thr))
+    call_ms = time_ms(lambda: suppress(m, keep0, thr), 200)
+    plain_ms = time_ms(lambda: suppress_reference(m, keep0, thr), 10)
+    bound_ms, nbytes, elems = suppress_bound(suppress_reference(m, keep0, thr))
+    print(f"{label}: kernel device {ms:.6f} ms per launch ({how}), call "
+          f"{call_ms:.4f} ms (CUDA events, 200 back-to-back calls), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({nbytes} bytes); "
+          f"library call: none (no single PyTorch op computes greedy "
+          f"suppression)", flush=True)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                >= elems / F32_OPS_PER_S else "operations")
 
 
 # --------------------------------------------------------------------------
@@ -134,8 +216,20 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# kernel_cases' inputs, in order
+KERNEL_CASES = (
+    "iou B=8 K=256", "containment B=8 K=256", "ties B=8 K=256",
+    "all-invalid B=8 K=256", "iou B=8 K=100",
+    # the bitmask's edges: one candidate, a word that is not full, 32 words
+    # in dynamic shared memory, one frame, only candidate 0 surviving, and
+    # NaN entries (NaN > thr is false)
+    "iou B=8 K=1", "iou B=8 K=33", "iou B=8 K=1024", "iou B=1 K=256",
+    "all-overlapping B=8 K=256", "NaN entries B=8 K=256")
+
+
 def kernel_cases(dev):
-    """(name, matrix, keep0, thr) cases for kernel-vs-plain on the card."""
+    """[(name, matrix, keep0, thr)] for kernel-vs-plain on the card, one
+    per name of KERNEL_CASES; the CPU tests hold the same cases to JAX."""
     rng = np.random.default_rng(0)
 
     def boxes(b, k):
@@ -153,14 +247,30 @@ def kernel_cases(dev):
     dup = boxes(8, 128).repeat_interleave(2, dim=1)  # every box twice
     quant = torch.round(box_iou(dup, dup) * 4) / 4   # entries exactly at thr
     b100 = boxes(8, 100)
-    return [
-        ("iou B=8 K=256", box_iou(b8, b8), keep(8, 256), 0.45),
-        ("containment B=8 K=256", cont.contiguous(), keep(8, 256), cont_thr),
-        ("ties B=8 K=256", quant.contiguous(), keep(8, 256), 0.5),
-        ("all-invalid B=8 K=256", box_iou(b8, b8),
-         torch.zeros(8, 256, dtype=torch.bool, device=dev), 0.45),
-        ("iou B=8 K=100", box_iou(b100, b100), keep(8, 100), 0.45),
+    inputs = [
+        (box_iou(b8, b8), keep(8, 256), 0.45),
+        (cont.contiguous(), keep(8, 256), cont_thr),
+        (quant.contiguous(), keep(8, 256), 0.5),
+        (box_iou(b8, b8), torch.zeros(8, 256, dtype=torch.bool, device=dev),
+         0.45),
+        (box_iou(b100, b100), keep(8, 100), 0.45),
     ]
+    iou = {k: box_iou(x, x) for k, x in
+           ((1, boxes(8, 1)), (33, boxes(8, 33)), (1024, boxes(8, 1024)))}
+    b1 = boxes(1, 256)
+    nan = box_iou(b8, b8).masked_fill(
+        torch.tensor(rng.uniform(size=(8, 256, 256)) < 0.1, device=dev),
+        float("nan"))
+    inputs += [
+        (iou[1], keep(8, 1), 0.45),
+        (iou[33], keep(8, 33), 0.45),
+        (iou[1024], keep(8, 1024), 0.45),
+        (box_iou(b1, b1), keep(1, 256), 0.45),
+        (torch.ones(8, 256, 256, device=dev),
+         torch.ones(8, 256, dtype=torch.bool, device=dev), 0.45),
+        (nan, keep(8, 256), 0.45),
+    ]
+    return [(name, *x) for name, x in zip(KERNEL_CASES, inputs, strict=True)]
 
 
 def match_fraction(a, b, iou_min=0.8):
@@ -198,7 +308,8 @@ def main() -> int:
 
     phase("3 kernel vs plain on the card")
     max_err = 0.0
-    for name, m, keep0, thr in kernel_cases(dev):
+    cases = kernel_cases(dev)
+    for name, m, keep0, thr in cases:
         got = suppress(m, keep0, thr)
         ref = suppress_reference(m, keep0, thr)
         torch.cuda.synchronize()
@@ -208,12 +319,8 @@ def main() -> int:
               f"bit-equal {torch.equal(got, ref)}", flush=True)
         if not torch.equal(got, ref):
             raise AssertionError(f"kernel != plain version on {name}")
-    _, m, keep0, thr = kernel_cases(dev)[1]
-    rand_ms = time_ms(lambda: suppress(m, keep0, thr), 200)
-    rand_plain_ms = time_ms(lambda: suppress_reference(m, keep0, thr), 10)
-    print(f"B=8 K=256 containment (random boxes): kernel {rand_ms:.4f} ms, "
-          f"plain {rand_plain_ms:.3f} ms; library call: none (no single "
-          f"PyTorch op computes greedy suppression)", flush=True)
+    name, m, keep0, thr = cases[1]
+    time_kernel(f"dense case, {name} (random boxes)", m, keep0, thr)
 
     phase("4 main path: YOLOv8x bf16, 1080p -> 736x1280, VideoProcessor.detect_frames")
     t = time.perf_counter()
@@ -286,19 +393,9 @@ def main() -> int:
             raise AssertionError(f"the halves differ from the main path, frame {i}")
     print("candidates + kernel + finish == detect_frames on the last batch: True",
           flush=True)
-    main_ms = time_ms(lambda: suppress(cand.matrix, cand.keep0, cand.thr), 200)
-    main_plain_ms = time_ms(
-        lambda: suppress_reference(cand.matrix, cand.keep0, cand.thr), 10)
-    # bound: each kept candidate's row tail M[i, i+1:] must be read and
-    # compared; keep0 read and keep written once
     b, k = cand.keep0.shape
-    tail = (k - 1 - torch.arange(k, device=dev))
-    elems = int((keep_r * tail).sum())
-    bytes_moved = 4 * elems + 2 * b * k
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, elems / F32_OPS_PER_S)
-    print(f"main-path NMS B={b} K={k}: kernel {main_ms:.4f} ms, plain "
-          f"{main_plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
-          f"({bytes_moved} bytes)", flush=True)
+    main = time_kernel(f"main-path NMS B={b} K={k}", cand.matrix, cand.keep0,
+                       cand.thr)
 
     # reference: the same detector in f32 on the CPU (plain suppression),
     # two frames; bf16 on the card must find the same players
@@ -325,11 +422,7 @@ def main() -> int:
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S
-        >= elems / F32_OPS_PER_S else "operations",
+        **main,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel `_suppress_kernel` via `suppress_pallas`
 (hockey_tpu/ops/pallas/nms_kernel.py:24,46), which the JAX detect megastep
-vmaps over frames. The CUDA source is `csrc/nms_suppress.cu`: one block per
-frame, one thread per candidate, keep vector in shared memory, K steps
-separated by block barriers. It is latency-bound (K sequential barrier
-steps), not bandwidth-bound at B*K*K*4 bytes.
+vmaps over frames. The CUDA source is `csrc/nms_suppress.cu`: one cluster
+of 8 blocks per frame builds a suppression bitmask in the first block's
+shared memory from the rows of the valid candidates, then one thread
+walks the survivors only, one step per kept candidate. It is bound by
+latency and instruction issue, not by its bytes (the kept rows' tails).
 
 Build: plain `nvcc` into a C-ABI shared library under
 `build/hockey_tpu_torch/` (named by the source's hash), loaded with ctypes,
@@ -30,7 +31,7 @@ SOURCE = os.path.join(_PKG_DIR, "csrc", "nms_suppress.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "hockey_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-MAX_K = 1024  # one thread per candidate in one block
+MAX_K = 1024  # 32 words of 32 bits per mask row
 
 
 def find_nvcc() -> str:
@@ -93,7 +94,7 @@ class SuppressKernel:
             fn = lib.nms_suppress
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._lib, self._fn = lib, fn
         return self._fn
@@ -108,12 +109,13 @@ class SuppressKernel:
                 keep0.shape[0], keep0.shape[1], keep0.shape[1]):
             raise ValueError(f"shape mismatch: m {tuple(m.shape)}, "
                              f"keep0 {tuple(keep0.shape)}")
-        if m.device != keep0.device:
-            raise ValueError(f"m on {m.device}, keep0 on {keep0.device}")
-        if m.device.type == "cpu":
+        device = m.device
+        if device != keep0.device:
+            raise ValueError(f"m on {device}, keep0 on {keep0.device}")
+        if device.type == "cpu":
             return suppress_reference(m, keep0, thr)
-        if m.device.type != "cuda":
-            raise ValueError(f"unsupported device {m.device}")
+        if device.type != "cuda":
+            raise ValueError(f"unsupported device {device}")
         b, k = keep0.shape
         if k > MAX_K:
             raise ValueError(f"K={k} > {MAX_K} candidates per frame")
@@ -121,9 +123,9 @@ class SuppressKernel:
             raise ValueError("m and keep0 must be contiguous")
         fn = self.load()
         keep = torch.empty_like(keep0)
-        stream = torch.cuda.current_stream(m.device).cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(m.data_ptr(), keep0.data_ptr(), keep.data_ptr(), b, k,
-                float(thr), stream)
+                float(thr), device.index, stream)
         if rc != 0:
             raise RuntimeError(f"nms_suppress launch failed: cudaError {rc}")
         self.launches += 1

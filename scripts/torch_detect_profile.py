@@ -10,7 +10,10 @@ after 3 warm-up batches, and reports from that one trace:
 
 - the device time of each stage of the step per batch, from the step's
   own `record_function` ranges (upload, letterbox, forward, decode,
-  nms_candidates, nms_suppress, nms_select_unmap);
+  nms_candidates, nms_select_unmap), and for nms_suppress from the
+  suppression kernel's own events by name: the trace does not link a
+  kernel launched through the kernel's ctypes library to the range it was
+  launched in;
 - the device busy share: the device time of all kernels and copies over
   the wall time of the profiled loop;
 - the CUDA kernels with the most device time.
@@ -33,7 +36,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import BATCH, FRAME_HW, synthetic_frames  # noqa: E402
+from chip_smoke import BATCH, FRAME_HW, KERNEL_NAME, synthetic_frames  # noqa: E402
 from hockey_tpu_torch.core.config import Config  # noqa: E402
 from hockey_tpu_torch.models.detector import Detector  # noqa: E402
 
@@ -80,6 +83,8 @@ def main() -> int:
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    stage_ms["nms_suppress"] = sum(ms for k, ms, _ in kernels
+                                   if KERNEL_NAME in k) / ITERS
     result = {
         "card": card,
         "device": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 
 The plain suppression (`suppress_reference`, what the CUDA kernel is held
 to on the card) against `_suppress_exact` and the Pallas kernel in
-interpret mode; then the whole batched `nms` against the JAX `nms` per
-frame. Tolerance: kept sets, validity and classes equal; boxes and scores
-within 1e-6 (the same f32 operations in the same order, so in practice
-they are equal)."""
+interpret mode, on this module's cases and on `chip_smoke.kernel_cases`,
+the very inputs the kernel meets on the card; then the whole batched
+`nms` against the JAX `nms` per frame. Tolerance: kept sets, validity
+and classes equal; boxes and scores within 1e-6 (the same f32 operations
+in the same order, so in practice they are equal)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hockey_tpu.ops.iou import box_iou as jax_box_iou
 from hockey_tpu.ops.nms import _suppress_exact
 from hockey_tpu.ops.nms import nms as jax_nms
@@ -52,17 +56,20 @@ def _case(name, k, rng):
         bx = np.broadcast_to(np.stack([xs, xs, xs + 50, xs + 50], 1), (B, k, 4))
         bx = torch.from_numpy(np.ascontiguousarray(bx))
         return box_iou(bx, bx).numpy(), np.ones((B, k), bool), 0.5
+    if name == "nan":  # NaN > thr is false: a NaN entry suppresses nothing
+        bx = torch.from_numpy(_boxes(rng, k, spread=200.0))
+        m = box_iou(bx, bx).numpy()
+        m[rng.uniform(size=m.shape) < 0.1] = np.nan
+        return m, keep0, 0.5
     raise ValueError(name)
 
 
-@pytest.mark.parametrize("k", [64, 100, 256])
-@pytest.mark.parametrize("name", ["iou", "containment", "ties", "all_invalid",
-                                  "all_disjoint"])
-def test_suppress_reference_matches_jax(name, k):
-    rng = np.random.default_rng(k)
-    m, keep0, thr = _case(name, k, rng)
+def _assert_matches_jax(m, keep0, thr):
+    """suppress_reference on the batch against `_suppress_exact` and the
+    Pallas kernel in interpret mode on each frame, exactly; returns the
+    batch's kept set."""
     got = suppress_reference(torch.from_numpy(m), torch.from_numpy(keep0), thr)
-    for b in range(B):
+    for b in range(m.shape[0]):
         want = np.asarray(_suppress_exact(jnp.asarray(m[b]),
                                           jnp.asarray(keep0[b]), thr))
         pallas = np.asarray(suppress_pallas(jnp.asarray(m[b]),
@@ -70,10 +77,38 @@ def test_suppress_reference_matches_jax(name, k):
                                             interpret=True))
         np.testing.assert_array_equal(got[b].numpy(), want)
         np.testing.assert_array_equal(pallas, want)
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 33, 64, 100, 256])
+@pytest.mark.parametrize("name", ["iou", "containment", "ties", "all_invalid",
+                                  "all_disjoint", "nan"])
+def test_suppress_reference_matches_jax(name, k):
+    rng = np.random.default_rng(k)
+    m, keep0, thr = _case(name, k, rng)
+    got = _assert_matches_jax(m, keep0, thr)
     if name == "all_disjoint":
         assert got.all()
     if name == "all_invalid":
         assert not got.any()
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel_cases():
+    return {name: (m.numpy(), keep0.numpy(), thr)
+            for name, m, keep0, thr in chip_smoke.kernel_cases("cpu")}
+
+
+@pytest.mark.parametrize("name", chip_smoke.KERNEL_CASES)
+def test_kernel_cases_match_jax(name):
+    """Every case chip_smoke.py holds the CUDA kernel to on the card (the
+    kernel against suppress_reference, bit for bit) is itself held to the
+    JAX package here, frame by frame and exactly; interpret mode is quick
+    enough to run on all of them, K = 1024 included."""
+    m, keep0, thr = _kernel_cases()[name]
+    got = _assert_matches_jax(m, keep0, thr)
+    if name.startswith("all-overlapping"):  # only candidate 0 survives
+        assert got[:, 0].all() and not got[:, 1:].any()
 
 
 def test_suppress_wrapper_on_cpu_runs_plain_version(rng):

@@ -25,7 +25,23 @@ Phases, each announced on its own line with the elapsed seconds:
    frames are held against an f32 CPU run of the same detector; the
    kernel's device time per launch, call time, plain time and bound on
    the main path's own candidates;
-5. the kernel table as one JSON line, then the result line.
+5. PLAYER_TRACKING: the same detector through
+   VideoProcessor(mode=PLAYER_TRACKING).track_frames, the fused detect +
+   track step (T = 128 tracks, D = 64 detections), three batches of 8; the
+   tracker must be the fused one (no host ByteTrack), the kernel must
+   launch at least 3 times, the last batch goes again through the
+   tracking core's two halves (NMS floored at 0.1), where the kernel's and
+   the plain suppression's kept sets must be equal and the kernel's half
+   must give the run's detections, the card's track ids must equal a replay of
+   `tracker_scan` on the CPU over the same padded detections copied from
+   the card, and every frame's ids must be positive and distinct; it
+   prints frames/s, the tracker's ms per batch (CUDA events and host
+   clock, from a replay of `tracker_scan` on the card over the run's own
+   detections), host syncs per batch (counted in `auction_match`), CUDA
+   kernel launches per batch in the tracker (torch.profiler), the count
+   of distinct ids and id switches against the generator's own players,
+   and these numbers as one JSON line;
+6. the kernel table as one JSON line, then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
@@ -44,10 +60,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
-from hockey_tpu_torch.core.config import Config  # noqa: E402
-from hockey_tpu_torch.models.detector import Detector, HostDetections  # noqa: E402
+from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
+from hockey_tpu_torch.models.detector import (  # noqa: E402
+    Detector,
+    HostDetections,
+    tracker_inputs,
+)
 from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
 from hockey_tpu_torch.ops.nms import suppression_matrix  # noqa: E402
 from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
@@ -55,7 +75,13 @@ from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
     suppress,
     suppress_reference,
 )
+from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
+from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
+    DeviceByteTrack,
+    init_state,
+    tracker_scan,
+)
 
 FRAME_HW = (1080, 1920)
 BATCH = 8
@@ -183,6 +209,28 @@ def _player(img, fx, fy, hpx, jersey, pants):
     _ellipse(img, fx, fy - 0.9 * hpx, 0.2 * bw, 0.08 * hpx, (150, 150, 150))
 
 
+def _skaters(rng, players: int):
+    """(foot (P, 2), velocity (P, 2) px per frame, height (P,)) of the
+    synthetic players, drawn from `rng`."""
+    h, w = FRAME_HW
+    foot = rng.uniform([150, 0.4 * h], [w - 150, h - 40], (players, 2))
+    vel = rng.uniform(-10, 10, (players, 2))
+    size = rng.uniform(150, 230, players)
+    return foot, vel, size
+
+
+def synthetic_players(seed: int, n: int, players: int = 10):
+    """The generator's own players in each of the n frames of
+    `synthetic_frames(seed, n, players)`: (centres (n, P, 2), heights
+    (n, P)) of each drawn figure in pixels."""
+    foot, vel, size = _skaters(np.random.default_rng(seed), players)
+    t = np.arange(n)[:, None, None]
+    f = foot[None] + vel[None] * t                      # (n, P, 2)
+    hpx = size[None] * (0.6 + 0.4 * f[..., 1] / FRAME_HW[0])
+    centre = np.stack([f[..., 0], f[..., 1] - 0.49 * hpx], -1)
+    return centre, hpx
+
+
 def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
     """(n, 1080, 1920, 3) uint8 BGR: white rink, lines, skating players."""
     rng = np.random.default_rng(seed)
@@ -194,9 +242,7 @@ def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
         base[:, x - 8:x + 8] = (200, 90, 30)
     base[:int(0.18 * h)] = (60, 70, 80)
     teams = [((200, 160, 40), (40, 40, 40)), ((30, 30, 200), (230, 230, 230))]
-    foot = rng.uniform([150, 0.4 * h], [w - 150, h - 40], (players, 2))
-    vel = rng.uniform(-10, 10, (players, 2))
-    size = rng.uniform(150, 230, players)
+    foot, vel, size = _skaters(rng, players)
     out = np.empty((n, h, w, 3), np.uint8)
     for t in range(n):
         f = base.copy()
@@ -271,6 +317,62 @@ def kernel_cases(dev):
         (nan, keep(8, 256), 0.45),
     ]
     return [(name, *x) for name, x in zip(KERNEL_CASES, inputs, strict=True)]
+
+
+# --------------------------------------------------------------------------
+# the tracker on the card
+
+def id_switches(rows, seed: int, players: int = 10):
+    """(distinct ids, id switches): a player of the generator and a
+    tracked box match when each is the other's nearest by centre and the
+    centres lie within 0.3 of the player's height; a switch is a player's
+    matched id changing from one matched frame to the next."""
+    centre, hpx = synthetic_players(seed, len(rows), players)
+    last, switches, ids = {}, 0, set()
+    for f, (boxes, _, _, tids) in enumerate(rows):
+        ids.update(int(t) for t in tids)
+        if not len(tids):
+            continue
+        c = (boxes[:, :2] + boxes[:, 2:]) / 2
+        dist = np.linalg.norm(c[:, None] - centre[f][None], axis=-1)
+        for j, i in enumerate(dist.argmin(0)):
+            if dist[i].argmin() == j and dist[i, j] < 0.3 * hpx[f, j]:
+                if j in last and last[j] != tids[i]:
+                    switches += 1
+                last[j] = int(tids[i])
+    return len(ids), switches
+
+
+def launches_in(prof, range_name: str) -> int:
+    """CUDA kernel launches (runtime launch calls) inside the host ranges
+    named `range_name` of a torch.profiler trace."""
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == range_name]
+    return sum(1 for e in events if "LaunchKernel" in e.name and any(
+        a <= e.time_range.start <= b for a, b in spans))
+
+
+def replay_on_card(inputs, kwargs, capacity: int):
+    """tracker_scan over the batches' padded detections on the card, from
+    init_state: (det_track_ids per batch, CUDA-event ms per batch, host ms
+    per batch)."""
+    state = init_state(capacity, "cuda")
+    tids, ev_ms, host_ms = [], [], []
+    for x in inputs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        with torch.inference_mode():
+            state, tid = tracker_scan(state, *x, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        ev_ms.append(start.elapsed_time(end))
+        tids.append(tid)
+    return tids, ev_ms, host_ms
 
 
 def match_fraction(a, b, iou_min=0.8):
@@ -413,14 +515,126 @@ def main() -> int:
     if min(fwd, bwd) < 0.8:
         raise AssertionError("bf16 card detections disagree with the f32 reference")
 
-    phase("5 results")
+    phase("5 PLAYER_TRACKING: fused detect + track, VideoProcessor.track_frames "
+          "(T=128, D=64)")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the tracker's products must be f32")
+    vp_t = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                          mode=ProcessingMode.PLAYER_TRACKING,
+                          player_detector=det)
+    if not (vp_t.use_fused_tracker and isinstance(vp_t.tracker, DeviceByteTrack)):
+        raise AssertionError("PLAYER_TRACKING on CUDA did not take the fused "
+                             "device tracker")
+    st = assignment.stats
+    suppress.launches = 0
+    st.syncs = st.rounds = st.fill_steps = 0
+    rows, outs, marks = [], [], []
+    t = time.perf_counter()
+    for r in vp_t.track_frames(iter(frames)):
+        rows.append(r)
+        if len(rows) % BATCH == 1:  # the batch's step has just run
+            outs.append(vp_t.last_track_batch)
+        if len(rows) % BATCH == 0:
+            marks.append(time.perf_counter())
+    launches_t = suppress.launches
+    syncs, rounds, fills = st.syncs, st.rounds, st.fill_steps
+    track_fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+    batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
+    print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
+    print(f"frames/s after the first batch: {track_fps:.2f}", flush=True)
+    print(f"nms_suppress launches over the tracking path: {launches_t}", flush=True)
+    print(f"tracked detections per frame: {[len(r[3]) for r in rows]}", flush=True)
+    if len(rows) != BATCH * N_BATCHES or len(outs) != N_BATCHES:
+        raise AssertionError(f"{len(rows)} frames out, {BATCH * N_BATCHES} in")
+    if launches_t < N_BATCHES:
+        raise AssertionError(f"kernel launched {launches_t} times, < {N_BATCHES}")
+    for f, (_, _, _, tids) in enumerate(rows):
+        if (tids <= 0).any() or len(set(tids.tolist())) != len(tids):
+            raise AssertionError(f"frame {f}: ids {tids.tolist()}")
+    if sum(len(r[3]) for r in rows) == 0:
+        raise AssertionError("no tracked detections")
+
+    # the last batch again through the tracking core's two halves (NMS
+    # floored at BYTE_FLOOR, so denser candidate sets than phase 4's): the
+    # kernel's kept set must equal the plain suppression's, and the
+    # kernel's half must give the detections the run handed the tracker
+    core_t = det._track_step.core
+    with torch.inference_mode():
+        cand = core_t.candidates(det.model, last)
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+        again = core_t.finish(cand, keep_k)
+    torch.cuda.synchronize()
+    same = torch.equal(keep_k, keep_r)
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
+    print(f"tracking-path NMS (conf {core_t.conf}), last batch: kept "
+          f"{keep_k.sum(1).tolist()} of {cand.keep0.sum(1).tolist()} "
+          f"candidates; kernel kept set == plain kept set: {same}", flush=True)
+    if not same:
+        raise AssertionError("tracking-path kept sets differ from the plain "
+                             "version")
+    run_det = outs[-1][0]
+    if not all(torch.equal(getattr(again, f), getattr(run_det, f))
+               for f in ("boxes", "scores", "classes", "valid")):
+        raise AssertionError("the tracking core's halves differ from the "
+                             "run's last batch")
+    print("candidates + kernel + finish == the tracking run's last batch: True",
+          flush=True)
+
+    # the card's ids against tracker_scan on the CPU over the same padded
+    # detections, batch by batch from init_state
+    kwargs = det.tracker_kwargs()
+    inputs = [tracker_inputs(o[0]) for o in outs]
+    state = init_state(config.max_tracks, "cpu")
+    for b, (o, x) in enumerate(zip(outs, inputs)):
+        state, cpu_tids = tracker_scan(state, *(v.cpu() for v in x), **kwargs)
+        if not torch.equal(cpu_tids, o[2].cpu()):
+            raise AssertionError(f"batch {b}: card track ids differ from the "
+                                 "CPU replay")
+    print("card track ids == tracker_scan replayed on the CPU: True", flush=True)
+
+    # the tracker alone on the card, over the run's own detections: CUDA
+    # events and host clock, then kernel launches in a profiled replay
+    card_tids, ev_ms, host_ms = replay_on_card(inputs, kwargs, config.max_tracks)
+    if not all(torch.equal(a, o[2]) for a, o in zip(card_tids, outs)):
+        raise AssertionError("a replay on the card gave other ids")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state = init_state(config.max_tracks, "cuda")
+        for x in inputs:
+            with torch.inference_mode(), record_function("tracker_scan"):
+                state, _ = tracker_scan(state, *x, **kwargs)
+        torch.cuda.synchronize()
+    tracker_launches = launches_in(prof, "tracker_scan") / N_BATCHES
+    n_ids, switches = id_switches(rows, seed=0)
+    tracking = {
+        "frames_per_s_after_first_batch": round(track_fps, 2),
+        "tracker_ms_per_batch_cuda_events": [round(x, 3) for x in ev_ms],
+        "tracker_ms_per_batch_host_clock": [round(x, 3) for x in host_ms],
+        "host_syncs_per_batch": syncs / N_BATCHES,
+        "auction_rounds_per_batch": rounds / N_BATCHES,
+        "fill_steps_per_batch": fills / N_BATCHES,
+        "kernel_launches_per_batch_in_tracker": tracker_launches,
+        "distinct_ids": n_ids,
+        "id_switches": switches,
+    }
+    print(f"tracker per batch of {BATCH} (replay on the card): CUDA events "
+          f"{tracking['tracker_ms_per_batch_cuda_events']} ms, host clock "
+          f"{tracking['tracker_ms_per_batch_host_clock']} ms; host syncs per "
+          f"batch {syncs / N_BATCHES:.1f} ({rounds / N_BATCHES:.1f} auction rounds); "
+          f"kernel launches per batch in the tracker {tracker_launches:.0f}",
+          flush=True)
+    print(f"distinct ids {n_ids}, id switches against the generator's players "
+          f"{switches}", flush=True)
+    print(json.dumps({"tracking": tracking}), flush=True)
+
+    phase("6 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches,
+        "launches": launches + launches_t,
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

@@ -1,9 +1,10 @@
-"""CLI entry point of the port (flags of hockey_tpu/cli/main.py that the
-PLAYER_DETECTION slice uses).
+"""CLI entry point of the port (the flags of hockey_tpu/cli/main.py that
+the PLAYER_DETECTION and PLAYER_TRACKING modes use).
 
-    python -m hockey_tpu_torch.cli.main --mode PLAYER_DETECTION \
+    python -m hockey_tpu_torch.cli.main --mode PLAYER_TRACKING \
         --source_path in.mp4 --target_path out.mp4 --headless \
-        [--device cuda|cpu] [--imgsz N] [--frame-batch N] [--limit-frames N]
+        [--device cuda|cpu] [--conf X] [--annotator box|ellipse|styled] \
+        [--imgsz N] [--frame-batch N] [--limit-frames N]
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default) or 'cpu'.")
     p.add_argument("--mode", type=str, default="PLAYER_DETECTION",
                    choices=[m.value for m in ProcessingMode],
-                   help="Processing mode; the port runs PLAYER_DETECTION.")
+                   help="Processing mode; the port runs PLAYER_DETECTION "
+                        "and PLAYER_TRACKING (the others raise).")
     p.add_argument("--headless", action="store_true",
                    help="No OpenCV windows.")
     p.add_argument("--checkpoint", type=str, default=None,
@@ -34,6 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Frames per device detection batch.")
     p.add_argument("--imgsz", type=int, default=None,
                    help="Detection resolution (default 1280).")
+    p.add_argument("--conf", type=float, default=None,
+                   help="Detection confidence threshold (default 0.4).")
+    p.add_argument("--annotator", type=str, default="box",
+                   choices=["box", "ellipse", "styled"],
+                   help="Player annotator style: rectangles (reference "
+                        "default), ground ellipses, or styled label chips.")
     p.add_argument("--limit-frames", type=int, default=None,
                    help="Stop after N output frames.")
     return p
@@ -49,6 +57,9 @@ def main(argv=None) -> int:
         config.frame_batch = args.frame_batch
     if args.imgsz:
         config.detection_imgsz = args.imgsz
+    if args.conf is not None:
+        config.detection_confidence = args.conf
+    config.annotator_style = args.annotator
 
     from ..pipeline import VideoProcessor, process_video_with_display
     from ..video.io import VideoInfo

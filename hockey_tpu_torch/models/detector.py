@@ -1,29 +1,37 @@
 """The detection step: letterbox -> YOLOv8 -> DFL decode -> NMS -> box
-un-mapping over a frame batch. Port of hockey_tpu/models/detector.py
-(`HostDetections`, `_unmap_boxes`, `_build_detect_core` as `DetectCore`,
-`Detector`) for the PLAYER_DETECTION path.
+un-mapping over a frame batch, and the fused detect + track step. Port of
+hockey_tpu/models/detector.py (`HostDetections`, `_unmap_boxes`,
+`_build_detect_core` as `DetectCore`, `build_detect_track_fn` as
+`DetectTrackStep`, `BYTE_FLOOR`, `Detector`).
 
 The frames cross to the device once per batch and the fixed-size padded
-detections come back once; NMS suppression runs in the CUDA kernel of
-ops/nms_kernel.py on a CUDA device.
+detections (or, fused, the packed detections and track ids) come back
+once; NMS suppression runs in the CUDA kernel of ops/nms_kernel.py on a
+CUDA device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..core.config import Config
+from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
 from ..core.device import resolve_device
 from ..ops.letterbox import letterbox_rect_batch, rect_letterbox_params, rect_shape
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
+from ..tracking.device_tracker import (TrackState, step_kwargs,
+                                       tracker_scan)
 from .checkpoint import load_params, shipped_weights_path
 from .layers import fuse_for_inference
 from .yolov8 import MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes, forward_raw
+
+# ByteTrack's low-score floor (the tracker's stage-2 band is [BYTE_FLOOR,
+# activation)); the fused tracking path floors its NMS here
+BYTE_FLOOR = 0.1
 
 
 class HostDetections(NamedTuple):
@@ -107,6 +115,39 @@ class DetectCore:
         return self.finish(c, keep)
 
 
+def tracker_inputs(det: Detections):
+    """(boxes, scores, classes, valid) that the fused step gives the
+    tracker: `det` with `valid` narrowed to {player, goalkeeper}, the
+    class filter of the reference's detection (main.py:177-195)."""
+    cls_ok = (det.classes == PLAYER_CLASS_ID) | (det.classes == GOALKEEPER_CLASS_ID)
+    return det.boxes, det.scores, det.classes, det.valid & cls_ok
+
+
+class DetectTrackStep:
+    """The fused step (hockey_tpu detector.py:184-230): `core` (a
+    DetectCore) on a frame batch, then `tracker_scan` over the batch's
+    frames on the device, on `tracker_inputs`. (model, frames, TrackState)
+    -> (Detections, None, det_track_ids (B, D) int32, packed (B, D, 7) f32,
+    new TrackState); `packed` is [boxes | score | class | track_id], so the
+    host needs one device-to-host copy per batch. The second slot stands
+    for the JAX step's team features, which are a later slice of the
+    port."""
+
+    def __init__(self, core: DetectCore, tracker_kwargs: Dict):
+        self.core, self.tracker_kwargs = core, tracker_kwargs
+
+    def __call__(self, model: YOLOv8, frames: torch.Tensor, state: TrackState):
+        det = self.core(model, frames)
+        with record_function("tracker_scan"):
+            state2, tids = tracker_scan(state, *tracker_inputs(det),
+                                        **self.tracker_kwargs)
+        with record_function("pack"):
+            packed = torch.cat([det.boxes, det.scores[..., None],
+                                det.classes.float()[..., None],
+                                tids.float()[..., None]], dim=-1)
+        return det, None, tids, packed, state2
+
+
 class Detector:
     """Host-facing detector: owns the model and the detect step.
 
@@ -159,6 +200,7 @@ class Detector:
             max_det=self.max_det,
             dtype=self.dtype,
         )
+        self._track_step: Optional[DetectTrackStep] = None  # built lazily
 
     def detect_batch(self, frames) -> Detections:
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
@@ -167,6 +209,36 @@ class Detector:
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
             return self.core(self.model, x)
+
+    def tracker_kwargs(self) -> Dict:
+        """The fused tracker's settings (hockey_tpu detector.py:316-327):
+        the Config's, with track initiation at max(activation, conf)."""
+        return step_kwargs(self.config, activation_thresh=max(
+            self.config.track_activation_threshold, self.conf))
+
+    def detect_track_batch(self, frames, state: TrackState):
+        """Fused detection + tracking over a frame batch: (B, H, W, 3) uint8
+        and the TrackState -> (Detections, None, det_track_ids (B, D),
+        packed (B, D, 7), new TrackState), all on the detector's device.
+
+        ByteTrack's second stage associates low-score detections (0.1 up
+        to the track-start threshold) to existing tracks, so this step
+        floors NMS at BYTE_FLOOR and keeps track initiation at the
+        reference's effective threshold max(activation, conf)
+        (hockey_tpu detector.py:301-315)."""
+        if self._track_step is None:
+            c = self.config
+            core = DetectCore(
+                self.cfg, imgsz=self.imgsz, frame_hw=self.frame_hw,
+                conf=min(self.conf, BYTE_FLOOR), iou=c.nms_iou_threshold,
+                containment=c.nms_containment_threshold,
+                pre_topk=c.nms_pre_topk, max_det=self.max_det,
+                dtype=self.dtype)
+            self._track_step = DetectTrackStep(core, self.tracker_kwargs())
+        with record_function("upload"):
+            x = torch.as_tensor(frames).to(self.device)
+        with torch.inference_mode():
+            return self._track_step(self.model, x, state)
 
     def detect(self, frame: np.ndarray) -> HostDetections:
         """Single frame -> host-side unpadded detections."""

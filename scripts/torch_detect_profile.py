@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the port's PLAYER_DETECTION step goes, on one GPU.
+"""Where the time of the port's detect step goes, on one GPU.
 
-    python3 scripts/torch_detect_profile.py [--out F]
+    python3 scripts/torch_detect_profile.py [--track] [--out F]
 
 Runs `Detector.detect_batch` (the shipped YOLOv8x player detector, bf16)
 on seeded synthetic 1080p frames (736x1280 network input; the frames of
@@ -17,6 +17,28 @@ after 3 warm-up batches, and reports from that one trace:
 - the device busy share: the device time of all kernels and copies over
   the wall time of the profiled loop;
 - the CUDA kernels with the most device time.
+
+With `--track` it profiles the fused detect + track step instead,
+`Detector.detect_track_batch` with the track state carried from batch to
+batch (T = 128, D = 64), over 104 frames of the same scene, and adds:
+
+- the device ms of the `tracker_scan` and `pack` ranges, and the host ms
+  of the `tracker_scan` range (its first host sync waits for the detect
+  work queued before it, so this range holds some of the detector's
+  device time as well);
+- the tracker alone: `tracker_scan` replayed on the card over the
+  profiled batches' own detections, from init_state, in 4 turns, timed
+  by the host clock around a synchronize and by CUDA events, with the
+  auction's rounds per batch; and its host time's share of the fused
+  step's wall time;
+- the CUDA kernel launches per batch inside the `tracker_scan` range and
+  the auction's host syncs per batch;
+- the host ByteTrack (tracking/bytetrack.py, scipy's Hungarian) over the
+  same batches' detections as the host path would give it (classes
+  player and goalkeeper, score above detection_confidence), its
+  `update` calls timed by the host clock: the cost of the host path's
+  tracker beside the fused one (not the same semantics: the host path
+  starves ByteTrack's low-score stage).
 
 Prints one JSON object as its last line (and writes it to `--out` when
 given). Needs CUDA.
@@ -36,18 +58,48 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import BATCH, FRAME_HW, KERNEL_NAME, synthetic_frames  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH,
+    FRAME_HW,
+    KERNEL_NAME,
+    launches_in,
+    replay_on_card,
+    synthetic_frames,
+)
 from hockey_tpu_torch.core.config import Config  # noqa: E402
-from hockey_tpu_torch.models.detector import Detector  # noqa: E402
+from hockey_tpu_torch.models.detector import Detector, tracker_inputs  # noqa: E402
+from hockey_tpu_torch.ops import assignment  # noqa: E402
+from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
+from hockey_tpu_torch.tracking.device_tracker import init_state  # noqa: E402
 
 ITERS = 10
+WARMUP = 3
 STAGES = ("upload", "letterbox", "forward", "decode", "nms_candidates",
           "nms_suppress", "nms_select_unmap")
+TRACK_STAGES = STAGES + ("tracker_scan", "pack")
+ALONE_TURNS = 4
+
+
+def tracker_alone(inputs, kwargs, capacity):
+    """{host_ms, event_ms, syncs, rounds}: per batch, one value per turn
+    (the mean over the batches) of tracker_scan replayed over `inputs`."""
+    out = {"host_ms": [], "event_ms": [], "syncs": [], "rounds": []}
+    st = assignment.stats
+    for _ in range(ALONE_TURNS):
+        st.syncs = st.rounds = 0
+        _, ev, host = replay_on_card(inputs, kwargs, capacity)
+        out["host_ms"].append(sum(host) / len(inputs))
+        out["event_ms"].append(sum(ev) / len(inputs))
+        out["syncs"].append(st.syncs / len(inputs))
+        out["rounds"].append(st.rounds / len(inputs))
+    return {m: [round(x, 4) for x in v] for m, v in out.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--track", action="store_true",
+                    help="profile the fused detect + track step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
@@ -60,26 +112,48 @@ def main() -> int:
     cfg = Config()
     det = Detector(cfg.player_model_name, cfg, frame_hw=FRAME_HW, device="cuda",
                    dtype=torch.bfloat16)
-    frames = synthetic_frames(seed=0, n=BATCH)
-    for _ in range(3):  # warm-up: cuDNN algorithm choice, kernel build
-        det.detect_batch(frames).boxes.cpu()
+    stages = TRACK_STAGES if args.track else STAGES
+    if args.track:
+        frames = synthetic_frames(seed=0, n=BATCH * (WARMUP + ITERS))
+        batches = [frames[BATCH * i:BATCH * (i + 1)]
+                   for i in range(WARMUP + ITERS)]
+        state = [init_state(cfg.max_tracks, "cuda")]
+        outs = []
+
+        def step(b):
+            out = det.detect_track_batch(batches[b], state[0])
+            state[0] = out[-1]
+            outs.append(out)
+            out[3].cpu()  # the one copy to the host per batch
+    else:
+        frames = synthetic_frames(seed=0, n=BATCH)
+
+        def step(b):
+            det.detect_batch(frames).boxes.cpu()
+    for b in range(WARMUP):  # warm-up: cuDNN algorithm choice, kernel build
+        step(b)
     torch.cuda.synchronize()
+    st = assignment.stats
+    st.syncs = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for _ in range(ITERS):
-            det.detect_batch(frames).boxes.cpu()
+        for b in range(WARMUP, WARMUP + ITERS):
+            step(b)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
+    syncs = st.syncs
 
     events = prof.key_averages()
     # a host-side range reports the device time of the work launched in it
     stage_ms = {e.key: e.device_time_total / 1e3 / ITERS for e in events
-                if e.key in STAGES and e.device_type == DeviceType.CPU}
+                if e.key in stages and e.device_type == DeviceType.CPU}
+    host_ms = {e.key: e.cpu_time_total / 1e3 / ITERS for e in events
+               if e.key in stages and e.device_type == DeviceType.CPU}
     # device-side events only (kernels, copies), without the ranges' own
     # device-side spans: host-side ops report their kernels' time again
     kernels = [(e.key[:120], e.self_device_time_total / 1e3, e.count)
                for e in events
-               if e.device_type == DeviceType.CUDA and e.key not in STAGES
+               if e.device_type == DeviceType.CUDA and e.key not in stages
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
@@ -91,13 +165,41 @@ def main() -> int:
         "batch": BATCH,
         "input_hw": list(det.core.in_hw),
         "stage_device_ms_per_batch": {k: round(stage_ms.get(k, 0.0), 4)
-                                      for k in STAGES},
+                                      for k in stages},
         "device_ms_per_batch": round(busy_ms / ITERS, 4),
         "wall_ms_per_batch": round(wall_ms / ITERS, 4),
         "frames_per_s": round(1e3 * BATCH * ITERS / wall_ms, 3),
         "device_busy_share": round(busy_ms / wall_ms, 4),
         "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in kernels[:15]],
     }
+    if args.track:
+        kwargs = det.tracker_kwargs()
+        inputs = [tracker_inputs(o[0]) for o in outs[WARMUP:]]
+        alone = tracker_alone(inputs, kwargs, cfg.max_tracks)
+        host_tracker = ByteTrack.from_config(cfg)
+        host_ms_bt = []
+        for boxes, scores, classes, valid in inputs:
+            keep = (valid & (scores > cfg.detection_confidence)).cpu().numpy()
+            frames_np = [(b[k], s[k], c[k]) for b, s, c, k in zip(
+                boxes.cpu().numpy(), scores.cpu().numpy(),
+                classes.cpu().numpy(), keep)]
+            t = time.perf_counter()
+            for fr in frames_np:
+                host_tracker.update(*fr)
+            host_ms_bt.append(1e3 * (time.perf_counter() - t))
+        alone_ms = alone["host_ms"]
+        result.update({
+            "tracker_scan_range_host_ms_per_batch": round(
+                host_ms["tracker_scan"], 4),
+            "tracker_alone_per_batch": alone,
+            "tracker_alone_share_of_wall": round(
+                sum(alone_ms) / len(alone_ms) / (wall_ms / ITERS), 4),
+            "tracker_launches_per_batch": launches_in(prof, "tracker_scan") / ITERS,
+            "host_syncs_per_batch": syncs / ITERS,
+            "detections_per_frame": [int(v) for o in outs[WARMUP:]
+                                     for v in tracker_inputs(o[0])[3].sum(1)],
+            "host_bytetrack_ms_per_batch": [round(x, 3) for x in host_ms_bt],
+        })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -130,8 +130,7 @@ def test_entry_points_refuse_what_the_slice_lacks():
             Detector(PLAYER)
         with pytest.raises(RuntimeError, match="CUDA"):
             VideoProcessor()
-    for mode in (ProcessingMode.PLAYER_TRACKING, ProcessingMode.TEAM_CLASSIFICATION,
-                 ProcessingMode.PUCK_DETECTION):
+    for mode in (ProcessingMode.TEAM_CLASSIFICATION, ProcessingMode.PUCK_DETECTION):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VideoProcessor(mode=mode, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

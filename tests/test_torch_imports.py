@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: hockey_tpu_torch imports neither JAX nor
 the JAX package, builds no kernel through torch.utils.cpp_extension, and
-everything chip_smoke.py imports also loads without cv2, msgpack or
-sklearn (the GPU machine has none of them)."""
+everything chip_smoke.py imports, the tracker and the PLAYER_TRACKING
+modules among it, also loads without cv2, msgpack or sklearn (the GPU
+machine has none of them)."""
 
 import os
 import re
@@ -35,8 +36,19 @@ for n in names:
 print(len(names))
 """
 
-_IMPORT_SMOKE = """
+# the modules of each slice that chip_smoke.py drives
+SMOKE_MODULES = (
+    "hockey_tpu_torch.models.detector", "hockey_tpu_torch.ops.nms_kernel",
+    "hockey_tpu_torch.pipeline", "hockey_tpu_torch.ops.assignment",
+    "hockey_tpu_torch.tracking.device_tracker",
+    "hockey_tpu_torch.tracking.bytetrack", "hockey_tpu_torch.tracking.kalman",
+    "hockey_tpu_torch.annotate.smooth", "hockey_tpu_torch.annotate.stabilizers",
+    "hockey_tpu_torch.annotate.draw")
+
+_IMPORT_SMOKE = f"""
 import chip_smoke
+missing = [m for m in {SMOKE_MODULES!r} if m not in sys.modules]
+assert not missing, missing
 print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
 """
 

@@ -41,7 +41,26 @@ Phases, each announced on its own line with the elapsed seconds:
    kernel launches per batch in the tracker (torch.profiler), the count
    of distinct ids and id switches against the generator's own players,
    and these numbers as one JSON line;
-6. the kernel table as one JSON line, then the result line.
+6. TEAM_CLASSIFICATION, the reference's main path: a VideoProcessor in
+   that mode builds its own detector with the team branch; `fit_teams`
+   fits the team classifier on every 10th of the same 24 frames, then
+   `classify_frames` runs the fused step (detect, NMS kernel,
+   `tracker_scan`, team features; one packed (8, 64, 11) copy per batch)
+   over 3 batches of 8. The tracker must be the fused one and `packed` 11
+   wide; the kernel must launch at least 3 times and, on the last batch,
+   keep the plain suppression's set; the card's ids must equal a CPU
+   replay of `tracker_scan`; the last batch's team features from the card
+   must match the plain team branch recomputed on the CPU in f32 from the
+   same frames and the card's own boxes (dominant_hue equal, white_ratio
+   within 0.01, saturation and brightness within 0.05), with equal team
+   ids from the fitted classifier on every valid row; the team accuracy
+   against the generator's teams (majority mapping, as
+   scripts/e2e_quality.py) must be at least 0.95 with the teams
+   separable. It prints frames/s of `classify_frames` after the first
+   batch, the `team_features` range's device ms and launches per batch
+   (torch.profiler), the fit's seconds and crop count and the accuracy,
+   as one JSON line;
+7. the kernel table as one JSON line, then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
@@ -66,6 +85,7 @@ from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
 from hockey_tpu_torch.models.detector import (  # noqa: E402
     Detector,
     HostDetections,
+    team_features,
     tracker_inputs,
 )
 from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
@@ -86,6 +106,8 @@ from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
 FRAME_HW = (1080, 1920)
 BATCH = 8
 N_BATCHES = 3
+# the generator's team of player j is j % 2 (synthetic_frames' `teams`)
+N_TEAMS = 2
 # H100 SXM peaks (NVIDIA data sheet) for the bound of the suppression
 # kernel: it moves f32 matrix rows and does f32 comparisons
 HBM_BYTES_PER_S = 3.35e12
@@ -322,33 +344,69 @@ def kernel_cases(dev):
 # --------------------------------------------------------------------------
 # the tracker on the card
 
+def matched_players(boxes, centre, hpx):
+    """(generator player j, tracked box i) pairs of one frame: each is the
+    other's nearest by centre and the centres lie within 0.3 of the
+    player's height. boxes (n, 4); centre (P, 2) and hpx (P,) from
+    `synthetic_players`."""
+    if not len(boxes):
+        return []
+    c = (boxes[:, :2] + boxes[:, 2:]) / 2
+    dist = np.linalg.norm(c[:, None] - centre[None], axis=-1)
+    return [(j, i) for j, i in enumerate(dist.argmin(0))
+            if dist[i].argmin() == j and dist[i, j] < 0.3 * hpx[j]]
+
+
 def id_switches(rows, seed: int, players: int = 10):
-    """(distinct ids, id switches): a player of the generator and a
-    tracked box match when each is the other's nearest by centre and the
-    centres lie within 0.3 of the player's height; a switch is a player's
-    matched id changing from one matched frame to the next."""
+    """(distinct ids, id switches) of tracked rows against the generator's
+    players (`matched_players`); a switch is a player's matched id
+    changing from one matched frame to the next."""
     centre, hpx = synthetic_players(seed, len(rows), players)
     last, switches, ids = {}, 0, set()
     for f, (boxes, _, _, tids) in enumerate(rows):
         ids.update(int(t) for t in tids)
-        if not len(tids):
-            continue
-        c = (boxes[:, :2] + boxes[:, 2:]) / 2
-        dist = np.linalg.norm(c[:, None] - centre[f][None], axis=-1)
-        for j, i in enumerate(dist.argmin(0)):
-            if dist[i].argmin() == j and dist[i, j] < 0.3 * hpx[f, j]:
-                if j in last and last[j] != tids[i]:
-                    switches += 1
-                last[j] = int(tids[i])
+        for j, i in matched_players(boxes, centre[f], hpx[f]):
+            if j in last and last[j] != tids[i]:
+                switches += 1
+            last[j] = int(tids[i])
     return len(ids), switches
+
+
+def team_accuracy(results, seed: int, players: int = 10):
+    """(accuracy, separable, matched players) of the players' team ids in
+    `results` (classify_frames' per-frame dicts) against the generator's
+    teams, j % 2 for player j: players matched as in `matched_players`,
+    each generator team mapped to the predicted team it most often got
+    (scripts/e2e_quality.py's rule); separable when the mapping is
+    one-to-one, and the accuracy is 0 when it is not."""
+    centre, hpx = synthetic_players(seed, len(results), players)
+    pairs = []
+    for f, r in enumerate(results):
+        keep = r["classes"] == 0
+        teams = r["team_ids"][keep]
+        pairs += [(j % N_TEAMS, int(teams[i])) for j, i in
+                  matched_players(r["boxes"][keep], centre[f], hpx[f])]
+    votes = {}
+    for g, p in pairs:
+        votes.setdefault(g, {}).setdefault(p, 0)
+        votes[g][p] += 1
+    mapping = {g: max(v, key=v.get) for g, v in votes.items()}
+    separable = len(mapping) == N_TEAMS and len(set(mapping.values())) == N_TEAMS
+    if not separable:
+        return 0.0, False, len(pairs)
+    return (sum(mapping[g] == p for g, p in pairs) / len(pairs), True,
+            len(pairs))
 
 
 def launches_in(prof, range_name: str) -> int:
     """CUDA kernel launches (runtime launch calls) inside the host ranges
-    named `range_name` of a torch.profiler trace."""
+    named `range_name` of a torch.profiler trace. Only the host-side spans
+    count: the trace also holds each range's span on the device's
+    timeline, later than the host's, over which the host launches the
+    next stages' kernels."""
     events = prof.events()
     spans = [(e.time_range.start, e.time_range.end) for e in events
-             if e.name == range_name]
+             if e.name == range_name and e.device_type == DeviceType.CPU]
     return sum(1 for e in events if "LaunchKernel" in e.name and any(
         a <= e.time_range.start <= b for a, b in spans))
 
@@ -385,6 +443,146 @@ def match_fraction(a, b, iou_min=0.8):
     iou = box_iou(torch.from_numpy(a.boxes), torch.from_numpy(b.boxes)).numpy()
     same = a.classes[:, None] == b.classes[None, :]
     return float(((iou >= iou_min) & same).any(axis=1).mean())
+
+
+def team_phase(config, frames, max_err, track_fps):
+    """Phase 6; returns (kernel launches over classify_frames, max_err).
+    `track_fps` is phase 5's frames/s, printed beside this path's."""
+    t = time.perf_counter()
+    vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                        mode=ProcessingMode.TEAM_CLASSIFICATION,
+                        team_names=("TEAM_A", "TEAM_B"))
+    det = vp.player_detector
+    print(f"detector with the team branch ready in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    if not (vp.use_fused_tracker and isinstance(vp.tracker, DeviceByteTrack)
+            and det.with_team_features):
+        raise AssertionError("TEAM_CLASSIFICATION on CUDA did not take the "
+                             "fused device step with team features")
+    suppress.launches = 0
+    t = time.perf_counter()
+    crops = vp.fit_teams(iter(frames))
+    fit_s = time.perf_counter() - t
+    launches_fit = suppress.launches
+    clf = vp.team_classifier._impl
+    if vp.team_classifier.active_strategy != "segmentation" or clf.kmeans is None:
+        raise AssertionError("the segmentation classifier was not fitted")
+    print(f"fit_teams: {crops} crops in {fit_s:.3f} s ({launches_fit} kernel "
+          f"launches); centres {np.round(clf.kmeans.cluster_centers_, 3).tolist()}",
+          flush=True)
+
+    suppress.launches = 0
+    results, outs, marks = [], [], []
+    t = time.perf_counter()
+    for r in vp.classify_frames(iter(frames)):
+        results.append(r)
+        if len(results) % BATCH == 1:  # the batch's step has just run
+            outs.append(vp.last_track_batch)
+        if len(results) % BATCH == 0:
+            marks.append(time.perf_counter())
+    launches_c = suppress.launches
+    fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+    batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
+    print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
+    print(f"frames/s after the first batch: {fps:.2f}", flush=True)
+    print(f"nms_suppress launches over classify_frames: {launches_c}", flush=True)
+    print(f"players per frame: {[int((r['classes'] == 0).sum()) for r in results]}",
+          flush=True)
+    if len(results) != BATCH * N_BATCHES or len(outs) != N_BATCHES:
+        raise AssertionError(f"{len(results)} frames out, {BATCH * N_BATCHES} in")
+    if launches_c < N_BATCHES:
+        raise AssertionError(f"kernel launched {launches_c} times, < {N_BATCHES}")
+    if any(o[3].shape != (BATCH, det.max_det, 11) for o in outs):
+        raise AssertionError("packed is not (B, D, 11)")
+
+    # the kernel on this path's last batch against the plain suppression
+    last = torch.as_tensor(frames[-BATCH:]).to("cuda")
+    core = det._track_step.core
+    with torch.inference_mode():
+        cand = core.candidates(det.model, last)
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+        again = core.finish(cand, keep_k)
+    torch.cuda.synchronize()
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
+    if not torch.equal(keep_k, keep_r):
+        raise AssertionError("team-path kept sets differ from the plain version")
+    if not all(torch.equal(getattr(again, f), getattr(outs[-1][0], f))
+               for f in ("boxes", "scores", "classes", "valid")):
+        raise AssertionError("the team core's halves differ from the run's "
+                             "last batch")
+    print(f"team-path NMS (conf {core.conf}), last batch: kernel kept set == "
+          f"plain kept set: True", flush=True)
+
+    # the card's ids against tracker_scan replayed on the CPU
+    kwargs = det.tracker_kwargs()
+    state = init_state(config.max_tracks, "cpu")
+    for b, o in enumerate(outs):
+        state, cpu_tids = tracker_scan(
+            state, *(v.cpu() for v in tracker_inputs(o[0])), **kwargs)
+        if not torch.equal(cpu_tids, o[2].cpu()):
+            raise AssertionError(f"batch {b}: card track ids differ from the "
+                                 "CPU replay")
+    print("card track ids == tracker_scan replayed on the CPU: True", flush=True)
+
+    # the last batch's team features: card against the plain branch on the
+    # CPU in f32, from the same frames and the card's own boxes
+    card = outs[-1][3][..., 7:].cpu().numpy()
+    valid = outs[-1][0].valid.cpu().numpy()
+    t = time.perf_counter()
+    with torch.inference_mode():
+        ref = team_features(torch.from_numpy(frames[-BATCH:]),
+                            outs[-1][0].boxes.cpu()).numpy()
+    ref_s = time.perf_counter() - t
+    err = np.abs(card - ref)
+    hue_equal = bool((card[..., 1] == ref[..., 1]).all())
+    tol = np.array([0.01, 0.0, 0.05, 0.05])
+    ids_card = clf.kmeans.predict(card[valid])
+    ids_ref = clf.kmeans.predict(ref[valid])
+    print(f"team features, last batch ({int(valid.sum())} valid of "
+          f"{valid.size} slots; CPU f32 in {ref_s:.1f} s): max |card - CPU| "
+          f"per column {np.round(err.max(axis=(0, 1)), 6).tolist()} (tolerance "
+          f"{tol.tolist()}), dominant_hue equal: {hue_equal}; team ids equal "
+          f"on every valid row: {bool((ids_card == ids_ref).all())}", flush=True)
+    if not (err <= tol).all() or not hue_equal:
+        raise AssertionError("card team features disagree with the CPU branch")
+    if not (ids_card == ids_ref).all():
+        raise AssertionError("team ids from card and CPU features differ")
+
+    acc, separable, n_pairs = team_accuracy(results, seed=0)
+    print(f"team accuracy against the generator's teams: {acc:.4f} over "
+          f"{n_pairs} matched players (separable: {separable})", flush=True)
+    if not separable or acc < 0.95:
+        raise AssertionError(f"team accuracy {acc:.4f} < 0.95 or teams not "
+                             "separable")
+
+    # the team branch's device time and launches: one profiled fused step
+    # on the last batch (a fresh state), the `team_features` range
+    x = torch.as_tensor(frames[-BATCH:])
+    det.detect_track_batch(x, init_state(config.max_tracks, "cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        det.detect_track_batch(x, init_state(config.max_tracks, "cuda"))[3].cpu()
+        torch.cuda.synchronize()
+    team_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.key == "team_features"
+                  and e.device_type == DeviceType.CPU) / 1e3
+    team_launches = launches_in(prof, "team_features")
+    teams = {
+        "frames_per_s_after_first_batch": round(fps, 2),
+        "tracking_frames_per_s_same_run": round(track_fps, 2),
+        "team_features_device_ms_per_batch": round(team_ms, 4),
+        "team_features_launches_per_batch": team_launches,
+        "fit_s": round(fit_s, 3),
+        "fit_crops": crops,
+        "team_accuracy": round(acc, 4),
+        "matched_players": n_pairs,
+        "feature_max_abs_err": np.round(err.max(axis=(0, 1)), 6).tolist(),
+    }
+    print(f"team_features range: {team_ms:.4f} ms device, {team_launches} "
+          f"launches per batch of {BATCH}", flush=True)
+    print(json.dumps({"teams": teams}), flush=True)
+    return launches_c, max_err
 
 
 def main() -> int:
@@ -430,7 +628,7 @@ def main() -> int:
     det = Detector(config.player_model_name, config, frame_hw=FRAME_HW,
                    device="cuda", dtype=torch.bfloat16)
     vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
-                        player_detector=det)
+                        mode=ProcessingMode.PLAYER_DETECTION, player_detector=det)
     frames = synthetic_frames(seed=0, n=BATCH * N_BATCHES)
     print(f"detector ready in {time.perf_counter() - t:.2f} s "
           f"(imgsz {det.imgsz}, frame batch "
@@ -505,6 +703,7 @@ def main() -> int:
     ref_det = Detector(config.player_model_name, config, frame_hw=FRAME_HW,
                        device="cpu", dtype=torch.float32)
     ref_vp = VideoProcessor(config, device="cpu", frame_hw=FRAME_HW,
+                            mode=ProcessingMode.PLAYER_DETECTION,
                             player_detector=ref_det)
     ref = list(ref_vp.detect_frames(iter(frames[:2])))
     fwd = min(match_fraction(r, d) for r, d in zip(ref, dets[:2]))
@@ -627,14 +826,20 @@ def main() -> int:
           f"{switches}", flush=True)
     print(json.dumps({"tracking": tracking}), flush=True)
 
-    phase("6 results")
+    phase("6 TEAM_CLASSIFICATION: fit_teams, then the fused detect + track + "
+          "team step through VideoProcessor.classify_frames")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the crop products must be f32")
+    launches_c, max_err = team_phase(config, frames, max_err, track_fps)
+
+    phase("7 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches + launches_t,
+        "launches": launches + launches_t + launches_c,
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

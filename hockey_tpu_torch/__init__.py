@@ -7,9 +7,11 @@ caller passes `device="cpu"`; they never fall back to the CPU on their own.
 
 Ported so far: PLAYER_DETECTION (letterbox -> YOLOv8 -> DFL decode -> NMS
 -> box un-mapping), with the greedy NMS suppression as a hand-written
-sm_90a CUDA kernel (`ops/nms_kernel.py`, `csrc/nms_suppress.cu`), and
+sm_90a CUDA kernel (`ops/nms_kernel.py`, `csrc/nms_suppress.cu`),
 PLAYER_TRACKING (the fused detect + track step with the on-device
-ByteTrack of `tracking/device_tracker.py`, or the host ByteTrack).
+ByteTrack of `tracking/device_tracker.py`, or the host ByteTrack), and
+TEAM_CLASSIFICATION, the default mode (the same step with the team
+features of `teams/`, and the segmentation team classifier).
 """
 
 __version__ = "0.1.0"

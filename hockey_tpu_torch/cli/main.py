@@ -1,8 +1,10 @@
 """CLI entry point of the port (the flags of hockey_tpu/cli/main.py that
-the PLAYER_DETECTION and PLAYER_TRACKING modes use).
+the PLAYER_DETECTION, PLAYER_TRACKING and TEAM_CLASSIFICATION modes use;
+TEAM_CLASSIFICATION is the default, as there).
 
-    python -m hockey_tpu_torch.cli.main --mode PLAYER_TRACKING \
-        --source_path in.mp4 --target_path out.mp4 --headless \
+    python -m hockey_tpu_torch.cli.main --source_path in.mp4 \
+        --target_path out.mp4 --headless [--team-names "HOME,AWAY"] \
+        [--mode TEAM_CLASSIFICATION|PLAYER_TRACKING|PLAYER_DETECTION] \
         [--device cuda|cpu] [--conf X] [--annotator box|ellipse|styled] \
         [--imgsz N] [--frame-batch N] [--limit-frames N]
 """
@@ -10,6 +12,7 @@ the PLAYER_DETECTION and PLAYER_TRACKING modes use).
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 from ..core.config import Config, ProcessingMode
@@ -24,12 +27,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to save the output video.")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'.")
-    p.add_argument("--mode", type=str, default="PLAYER_DETECTION",
+    p.add_argument("--mode", type=str, default="TEAM_CLASSIFICATION",
                    choices=[m.value for m in ProcessingMode],
-                   help="Processing mode; the port runs PLAYER_DETECTION "
-                        "and PLAYER_TRACKING (the others raise).")
+                   help="Processing mode; the port runs TEAM_CLASSIFICATION, "
+                        "PLAYER_TRACKING and PLAYER_DETECTION (PUCK_DETECTION "
+                        "raises).")
     p.add_argument("--headless", action="store_true",
-                   help="No OpenCV windows.")
+                   help="No OpenCV windows; use default/provided team names.")
+    p.add_argument("--team-names", type=str, default=None,
+                   help="Comma-separated 'HOME,AWAY' names (headless init).")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Player-model msgpack checkpoint.")
     p.add_argument("--frame-batch", type=int, default=None,
@@ -49,6 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.headless:  # the team selector takes the names without its UI
+        os.environ["HOCKEY_TPU_HEADLESS"] = "1"
     if not Path(args.source_path).exists():
         raise FileNotFoundError(f"Source video not found: {args.source_path}")
 
@@ -65,12 +73,18 @@ def main(argv=None) -> int:
     from ..video.io import VideoInfo
 
     info = VideoInfo.from_video_path(args.source_path)
+    team_names = None
+    if args.team_names:
+        parts = args.team_names.split(",")
+        if len(parts) == 2:
+            team_names = (parts[0].strip(), parts[1].strip())
     processor = VideoProcessor(
         config=config,
         device=args.device,
         mode=ProcessingMode(args.mode),
         frame_hw=(info.height, info.width),
         checkpoint=args.checkpoint,
+        team_names=team_names,
     )
     n = process_video_with_display(processor, args.source_path,
                                    args.target_path,

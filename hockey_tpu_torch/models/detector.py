@@ -1,13 +1,15 @@
 """The detection step: letterbox -> YOLOv8 -> DFL decode -> NMS -> box
-un-mapping over a frame batch, and the fused detect + track step. Port of
-hockey_tpu/models/detector.py (`HostDetections`, `_unmap_boxes`,
-`_build_detect_core` as `DetectCore`, `build_detect_track_fn` as
+un-mapping over a frame batch, optionally the team-feature branch, and
+the fused detect + track step. Port of hockey_tpu/models/detector.py
+(`HostDetections`, `_unmap_boxes`, `_build_detect_core` as `DetectCore`,
+its team branch as `team_features`, `build_detect_track_fn` as
 `DetectTrackStep`, `BYTE_FLOOR`, `Detector`).
 
 The frames cross to the device once per batch and the fixed-size padded
-detections (or, fused, the packed detections and track ids) come back
-once; NMS suppression runs in the CUDA kernel of ops/nms_kernel.py on a
-CUDA device.
+detections (or, fused, the packed detections, track ids and team
+features) come back once; the step's constant matrices and anchors are
+built on the device once (`core.device.device_constant`). NMS suppression runs
+in the CUDA kernel of ops/nms_kernel.py on a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,9 +22,13 @@ from torch.profiler import record_function
 
 from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
 from ..core.device import resolve_device
-from ..ops.letterbox import letterbox_rect_batch, rect_letterbox_params, rect_shape
+from ..ops.crop_resize import crop_and_resize_mm
+from ..ops.letterbox import (letterbox_rect_batch, rect_letterbox_params,
+                             rect_shape, resize_batch)
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
+from ..teams.base import CROP_H, CROP_W
+from ..teams.features import color_prior_masks, segmentation_features
 from ..tracking.device_tracker import (TrackState, step_kwargs,
                                        tracker_scan)
 from .checkpoint import load_params, shipped_weights_path
@@ -32,6 +38,9 @@ from .yolov8 import MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes, fo
 # ByteTrack's low-score floor (the tracker's stage-2 band is [BYTE_FLOOR,
 # activation)); the fused tracking path floors its NMS here
 BYTE_FLOOR = 0.1
+# the team branch crops from frames downscaled by this factor: colour
+# statistics need no full resolution (hockey_tpu detector.py:140)
+TEAM_DS = 4
 
 
 class HostDetections(NamedTuple):
@@ -58,31 +67,51 @@ def _unmap_boxes(boxes: torch.Tensor, h: int, w: int, imgsz: int) -> torch.Tenso
     """Minimal-rectangle letterboxed xyxy -> original-frame xyxy, clipped
     to the frame."""
     r, _, _, pad_top, pad_left, _, _ = rect_letterbox_params(h, w, imgsz)
-    pad = torch.tensor([pad_left, pad_top, pad_left, pad_top],
-                       dtype=boxes.dtype, device=boxes.device)
-    out = (boxes - pad) / r
-    hi = torch.tensor([w, h, w, h], dtype=out.dtype, device=out.device)
-    return torch.clamp(out, min=torch.zeros_like(hi), max=hi)
+    x = torch.clamp((boxes[..., 0::2] - pad_left) / r, 0.0, w)
+    y = torch.clamp((boxes[..., 1::2] - pad_top) / r, 0.0, h)
+    return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
+def team_features(frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """The fused team branch (hockey_tpu detector.py:128-154): frames
+    (B, H, W, 3) uint8 and padded boxes (B, D, 4) in frame pixels ->
+    (B, D, 4) f32 segmentation features, one per box slot.
+
+    The frames are resized by 1/TEAM_DS in f32; every slot's box / TEAM_DS
+    is cropped from its frame by interpolation matrices to 128x64, masked
+    by the colour prior and reduced to [white_ratio, dominant_hue,
+    saturation, brightness]. All B * D crops go at once (the JAX package maps over the
+    frames to save TPU memory), with no host sync; an empty slot gets the
+    under-100-pixel defaults."""
+    b, h, w, _ = frames.shape
+    d = boxes.shape[1]
+    small = resize_batch(frames, (h // TEAM_DS, w // TEAM_DS), torch.float32)
+    crops = crop_and_resize_mm(small, boxes.float() / TEAM_DS, (CROP_H, CROP_W))
+    crops = crops.reshape(b * d, CROP_H, CROP_W, 3)
+    return segmentation_features(crops, color_prior_masks(crops)).reshape(b, d, 4)
 
 
 class DetectCore:
     """(model, frames (B, H, W, 3) uint8 on the device) -> padded
-    Detections in original-frame coordinates (hockey_tpu
-    detector.py:75-126 with its default rect=True, without the keypoint
-    and team branches). Frames are letterboxed to the minimal stride-32
-    rectangle (736x1280 for 1080p at 1280), as ultralytics predict does.
+    Detections in original-frame coordinates, or with `with_team_features`
+    (Detections, team features (B, D, 4)) (hockey_tpu detector.py:75-154
+    with its default rect=True, without the keypoint branch). Frames are
+    letterboxed to the minimal stride-32 rectangle (736x1280 for 1080p at
+    1280), as ultralytics predict does.
 
-    The step is two halves around the suppression kernel: `candidates`
-    (letterbox -> forward -> decode -> class max -> top-K and suppression
-    matrix) and `finish` (selection and un-mapping of the kept set). Each
-    stage is a `torch.profiler.record_function` range, so a profiler
-    trace splits the step by stage."""
+    The step is two halves around the suppression kernel:
+    `candidates` (letterbox -> forward -> decode -> class max -> top-K and
+    suppression matrix) and `finish` (selection and un-mapping of the kept
+    set). Each stage is a `torch.profiler.record_function` range, so a
+    profiler trace splits the step by stage."""
 
     def __init__(self, cfg: YoloConfig, *, imgsz: int,
                  frame_hw: Tuple[int, int], conf: float, iou: float = 0.45,
                  containment: float = 0.0, pre_topk: int = 256,
-                 max_det: int = 64, dtype=torch.bfloat16):
+                 max_det: int = 64, dtype=torch.bfloat16,
+                 with_team_features: bool = False):
         self.cfg, self.imgsz, self.frame_hw = cfg, imgsz, frame_hw
+        self.with_team_features = with_team_features
         self.conf, self.iou, self.containment = conf, iou, containment
         self.pre_topk, self.max_det, self.dtype = pre_topk, max_det, dtype
         self.in_hw = rect_shape(*frame_hw, imgsz)
@@ -108,11 +137,15 @@ class DetectCore:
             return det._replace(boxes=_unmap_boxes(det.boxes, *self.frame_hw,
                                                    self.imgsz))
 
-    def __call__(self, model: YOLOv8, frames: torch.Tensor) -> Detections:
+    def __call__(self, model: YOLOv8, frames: torch.Tensor):
         c = self.candidates(model, frames)
         with record_function("nms_suppress"):
             keep = suppress(c.matrix, c.keep0, c.thr)
-        return self.finish(c, keep)
+        det = self.finish(c, keep)
+        if not self.with_team_features:
+            return det
+        with record_function("team_features"):
+            return det, team_features(frames, det.boxes)
 
 
 def tracker_inputs(det: Detections):
@@ -127,25 +160,27 @@ class DetectTrackStep:
     """The fused step (hockey_tpu detector.py:184-230): `core` (a
     DetectCore) on a frame batch, then `tracker_scan` over the batch's
     frames on the device, on `tracker_inputs`. (model, frames, TrackState)
-    -> (Detections, None, det_track_ids (B, D) int32, packed (B, D, 7) f32,
-    new TrackState); `packed` is [boxes | score | class | track_id], so the
-    host needs one device-to-host copy per batch. The second slot stands
-    for the JAX step's team features, which are a later slice of the
-    port."""
+    -> (Detections, team features (B, D, 4) or None, det_track_ids (B, D)
+    int32, packed (B, D, 7 or 11) f32, new TrackState); `packed` is
+    [boxes | score | class | track_id | features], so the host needs one
+    device-to-host copy per batch."""
 
     def __init__(self, core: DetectCore, tracker_kwargs: Dict):
         self.core, self.tracker_kwargs = core, tracker_kwargs
 
     def __call__(self, model: YOLOv8, frames: torch.Tensor, state: TrackState):
-        det = self.core(model, frames)
+        out = self.core(model, frames)
+        det, feats = out if self.core.with_team_features else (out, None)
         with record_function("tracker_scan"):
             state2, tids = tracker_scan(state, *tracker_inputs(det),
                                         **self.tracker_kwargs)
         with record_function("pack"):
-            packed = torch.cat([det.boxes, det.scores[..., None],
-                                det.classes.float()[..., None],
-                                tids.float()[..., None]], dim=-1)
-        return det, None, tids, packed, state2
+            cols = [det.boxes, det.scores[..., None],
+                    det.classes.float()[..., None], tids.float()[..., None]]
+            if feats is not None:
+                cols.append(feats)
+            packed = torch.cat(cols, dim=-1)
+        return det, feats, tids, packed, state2
 
 
 class Detector:
@@ -153,7 +188,9 @@ class Detector:
 
     Weights: `checkpoint` if given, else the JAX package's shipped
     checkpoint for `model_name`. `fuse` folds BN; the model runs in
-    `dtype` (bf16 on CUDA, f32 on the CPU by default)."""
+    `dtype` (bf16 on CUDA, f32 on the CPU by default). With
+    `with_team_features` both steps also return each box slot's 4-dim team
+    feature (`team_features`)."""
 
     def __init__(
         self,
@@ -170,10 +207,7 @@ class Detector:
         dtype: Optional[torch.dtype] = None,
         with_team_features: bool = False,
     ):
-        if with_team_features:
-            raise NotImplementedError(
-                "fused team features are a later slice of the port; see "
-                "ROADMAP.md 'Team features and TEAM_CLASSIFICATION'")
+        self.with_team_features = with_team_features
         self.device = resolve_device(device)
         self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda"
                                else torch.float32)
@@ -199,12 +233,14 @@ class Detector:
             pre_topk=self.config.nms_pre_topk,
             max_det=self.max_det,
             dtype=self.dtype,
+            with_team_features=with_team_features,
         )
         self._track_step: Optional[DetectTrackStep] = None  # built lazily
 
-    def detect_batch(self, frames) -> Detections:
+    def detect_batch(self, frames):
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
-        detector's device."""
+        detector's device; with team features, (Detections, features
+        (B, D, 4))."""
         with record_function("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
@@ -218,8 +254,9 @@ class Detector:
 
     def detect_track_batch(self, frames, state: TrackState):
         """Fused detection + tracking over a frame batch: (B, H, W, 3) uint8
-        and the TrackState -> (Detections, None, det_track_ids (B, D),
-        packed (B, D, 7), new TrackState), all on the detector's device.
+        and the TrackState -> (Detections, team features (B, D, 4) or None,
+        det_track_ids (B, D), packed (B, D, 7 or 11), new TrackState), all
+        on the detector's device.
 
         ByteTrack's second stage associates low-score detections (0.1 up
         to the track-start threshold) to existing tracks, so this step
@@ -233,7 +270,7 @@ class Detector:
                 conf=min(self.conf, BYTE_FLOOR), iou=c.nms_iou_threshold,
                 containment=c.nms_containment_threshold,
                 pre_topk=c.nms_pre_topk, max_det=self.max_det,
-                dtype=self.dtype)
+                dtype=self.dtype, with_team_features=self.with_team_features)
             self._track_step = DetectTrackStep(core, self.tracker_kwargs())
         with record_function("upload"):
             x = torch.as_tensor(frames).to(self.device)
@@ -241,5 +278,8 @@ class Detector:
             return self._track_step(self.model, x, state)
 
     def detect(self, frame: np.ndarray) -> HostDetections:
-        """Single frame -> host-side unpadded detections."""
-        return HostDetections.from_padded(self.detect_batch(frame[None]), 0)
+        """Single frame -> host-side unpadded detections (team features,
+        if any, are dropped)."""
+        out = self.detect_batch(frame[None])
+        return HostDetections.from_padded(
+            out[0] if self.with_team_features else out, 0)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core.device import device_constant
 from .checkpoint import flatten_tree
 from .layers import C2f, SPPF, Conv, make_divisible, upsample2x
 
@@ -205,9 +206,11 @@ def decode_boxes(raw: Dict[str, List[torch.Tensor]], cfg: YoloConfig, imgsz
     cls_flat = torch.cat([m.reshape(b, -1, cfg.num_classes)
                           for m in raw["cls"]], 1).float()
     dev = box_flat.device
-    pts, strs = anchor_points(imgsz)
-    pts = torch.from_numpy(pts).to(dev)
-    strs = torch.from_numpy(strs).to(dev)
+    in_hw = (imgsz, imgsz) if isinstance(imgsz, int) else tuple(imgsz)
+    pts = device_constant(("anchor_points", in_hw),
+                          lambda: anchor_points(in_hw)[0], dev, torch.float32)
+    strs = device_constant(("anchor_strides", in_hw),
+                           lambda: anchor_points(in_hw)[1], dev, torch.float32)
 
     dist = box_flat.reshape(b, -1, 4, cfg.reg_max)
     bins = torch.arange(cfg.reg_max, dtype=torch.float32, device=dev)

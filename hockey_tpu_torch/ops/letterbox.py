@@ -2,7 +2,9 @@
 
 uint8 NHWC frames on the device -> `dtype` NHWC in [0, 1], aspect kept,
 gray-114 padding, ultralytics LetterBox geometry. The bilinear resize is
-two dense interpolation-matrix products, as in the JAX package.
+two dense interpolation-matrix products, as in the JAX package; each
+matrix is built on its device once per shape and dtype
+(`core.device.device_constant`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..core.device import device_constant
 
 PAD_VALUE = 114.0 / 255.0
 
@@ -61,16 +65,35 @@ def _resize_matrix(src: int, dst: int) -> np.ndarray:
     return m
 
 
+def _resize(frames: torch.Tensor, out_h: int, out_w: int, dtype
+            ) -> torch.Tensor:
+    """(B, H, W, C) -> (B, out_h, out_w, C) `dtype`, the separable bilinear
+    resize as two products with the (out_h, H) and (W, out_w)
+    interpolation matrices."""
+    _, h, w, _ = frames.shape
+    dev = frames.device
+    ah = device_constant(("resize", h, out_h),
+                         lambda: _resize_matrix(h, out_h), dev, dtype)
+    aw = device_constant(("resize_t", w, out_w),
+                         lambda: _resize_matrix(w, out_w).T, dev, dtype)
+    x = torch.einsum("rh,bhwc->brwc", ah, frames.to(dtype))
+    return torch.einsum("brwc,wk->brkc", x, aw)
+
+
+def resize_batch(frames: torch.Tensor, out_hw: Tuple[int, int],
+                 dtype=torch.float32) -> torch.Tensor:
+    """Plain separable bilinear resize, no pad or normalisation:
+    (B, H, W, C) -> (B, oh, ow, C) `dtype`, values kept in [0, 255]
+    (hockey_tpu letterbox.py:145-160). f32 by default; on CUDA the f32
+    products run without TF32 (PyTorch's default), as JAX's HIGHEST."""
+    return _resize(frames, out_hw[0], out_hw[1], dtype)
+
+
 def _letterbox(frames: torch.Tensor, new_h: int, new_w: int, pad_top: int,
                pad_left: int, out_h: int, out_w: int, dtype) -> torch.Tensor:
-    b, h, w, c = frames.shape
+    b, _, _, c = frames.shape
     dev = frames.device
-    ah = torch.from_numpy(_resize_matrix(h, new_h)).to(dev, dtype)     # (nh, h)
-    aw = torch.from_numpy(_resize_matrix(w, new_w).T.copy()).to(dev, dtype)
-    x = frames.to(dtype)
-    x = torch.einsum("rh,bhwc->brwc", ah, x)
-    x = torch.einsum("brwc,wk->brkc", x, aw)
-    x = x * (1.0 / 255.0)
+    x = _resize(frames, new_h, new_w, dtype) * (1.0 / 255.0)
     out = torch.full((b, out_h, out_w, c), PAD_VALUE, dtype=dtype, device=dev)
     out[:, pad_top:pad_top + new_h, pad_left:pad_left + new_w] = x
     return out

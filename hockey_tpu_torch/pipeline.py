@@ -1,11 +1,25 @@
-"""The VideoProcessor for PLAYER_DETECTION and PLAYER_TRACKING: port of the
-batched loop of hockey_tpu/pipeline.py:388-474, its tracker choice
-(:120-155), `unpack_tracked` (:476-502) and the two modes' branches of
-`process_frame` (:261-296, :354-363).
+"""The VideoProcessor: port of hockey_tpu/pipeline.py for the modes
+PLAYER_DETECTION, PLAYER_TRACKING and TEAM_CLASSIFICATION (the
+reference's main path and the default mode): the batched loop (:388-474),
+the tracker choice (:120-155), the one-time team fit
+(`initialize_team_classifier`, :194-233), the modes' branches of
+`process_frame` (:261-363) and `unpack_tracked` (:476-502).
 
-The numeric part needs no OpenCV: `detect_frames` and `track_frames` turn
-any iterable of frames into per-frame detections or tracked rows.
-`process_video` reads a video, runs the same steps and draws.
+The numeric part needs no OpenCV: `detect_frames`, `track_frames` and
+`classify_frames` turn any iterable of frames into per-frame results, and
+`fit_teams` fits the team classifier on frames. `process_video` reads a
+video, runs the same steps and draws.
+
+TEAM_CLASSIFICATION takes one of three routes, as in the JAX package:
+- fused: on CUDA with a frame batch above 1, one device step per batch
+  (detect, NMS kernel, `tracker_scan`, team features) and one copy of the
+  packed (B, D, 11) result to the host;
+- batched with the host ByteTrack: detections and team features in one
+  device step per batch, the tracker frame by frame, features joined to
+  the tracked rows through `tracker.last_indices`;
+- frame-sequential (frame batch 1, the CPU's default): detection per
+  frame, then crops sampled from the frame on the device for the tracked
+  players (`predict_from_frame`).
 
 PLAYER_TRACKING runs without jersey-number OCR: the reference's
 no-backend path (hockey_tpu ocr/jersey.py:43-49, `digit_params=False`),
@@ -14,7 +28,8 @@ so its labels carry tracker ids only. OCR is ROADMAP.md item 4.
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, List, Optional, Tuple
+import itertools
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,58 +45,70 @@ from .core.config import (
 from .core.device import resolve_device
 from .models.detector import Detector, HostDetections
 from .ops.nms import Detections
+from .teams.base import host_crops
+from .teams.facade import TeamClassifier
 from .tracking.bytetrack import ByteTrack
 from .tracking.device_tracker import DeviceByteTrack
+from .ui.team_selector import InteractiveTeamSelector
 from .utils.metrics import StageTimers
-from .video.io import VideoInfo, batched, batched_frame_generator
+from .video.io import VideoInfo, batched, frame_generator
 
-PORTED_MODES = (ProcessingMode.PLAYER_DETECTION, ProcessingMode.PLAYER_TRACKING)
+PORTED_MODES = (ProcessingMode.PLAYER_DETECTION, ProcessingMode.PLAYER_TRACKING,
+                ProcessingMode.TEAM_CLASSIFICATION)
+_TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
+                   ProcessingMode.TEAM_CLASSIFICATION)
 
 # (boxes (n, 4), scores (n,), classes (n,) int32, tracker_ids (n,) int32)
 Tracked = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
 
 class VideoProcessor:
-    """Orchestrator of the ported modes, PLAYER_DETECTION and
-    PLAYER_TRACKING; the others raise, naming ROADMAP.md.
+    """Orchestrator of the ported modes; PUCK_DETECTION raises, naming
+    ROADMAP.md.
 
-    Tracker choice (hockey_tpu pipeline.py:120-155): with
-    `config.use_device_tracker` None, tracking is fused into the detect
-    step on the device on CUDA with a frame batch above 1, and runs in the
-    host ByteTrack elsewhere; both get the duplicate-kill knobs."""
+    Tracker choice (hockey_tpu pipeline.py:120-155), in PLAYER_TRACKING
+    and TEAM_CLASSIFICATION: with `config.use_device_tracker` None,
+    tracking is fused into the detect step on the device on CUDA with a
+    frame batch above 1, and runs in the host ByteTrack elsewhere; both get
+    the duplicate-kill knobs. In TEAM_CLASSIFICATION the detector also
+    computes each detection's team features in its step."""
 
     def __init__(
         self,
         config: Optional[Config] = None,
         device="cuda",
-        mode: ProcessingMode = ProcessingMode.PLAYER_DETECTION,
+        mode: ProcessingMode = ProcessingMode.TEAM_CLASSIFICATION,
         frame_hw: Tuple[int, int] = (1080, 1920),
         checkpoint: Optional[str] = None,
+        team_names: Optional[Tuple[str, str]] = None,
         player_detector=None,
     ):
         self.mode = ProcessingMode(mode)
         if self.mode not in PORTED_MODES:
             raise NotImplementedError(
-                f"mode {self.mode.value}: the port runs PLAYER_DETECTION and "
-                "PLAYER_TRACKING so far; see ROADMAP.md for the slices still "
-                "to come")
+                f"mode {self.mode.value}: the port runs PLAYER_DETECTION, "
+                "PLAYER_TRACKING and TEAM_CLASSIFICATION so far; see "
+                "ROADMAP.md for the slices still to come")
         self.config = config or Config()
         self.device = resolve_device(device)
         self.frame_hw = frame_hw
         self.timers = StageTimers()
-        self.last_frame_result = None  # set per frame in the tracking mode
+        self.last_frame_result = None  # set per frame in the tracking modes
         self.last_track_batch = None   # the fused step's last raw output
+        teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
         self.player_detector = player_detector or Detector(
             self.config.player_model_name, self.config, frame_hw=frame_hw,
-            checkpoint=checkpoint, device=self.device)
+            checkpoint=checkpoint, device=self.device, with_team_features=teams)
         self.box_annotator, self.label_annotator = make_annotators(self.config)
         self.smooth_annotator = SmoothAnnotator(
             self.box_annotator, smoothing_factor=self.config.smoothing_factor,
             use_adaptive=self.config.use_adaptive_smoothing)
+        self.team_classifier = TeamClassifier(device=self.device)
+        self.team_selector = InteractiveTeamSelector(headless_names=team_names)
 
         self.tracker = None
         self.use_fused_tracker = False
-        if self.mode == ProcessingMode.PLAYER_TRACKING:
+        if self.mode in _TRACKING_MODES:
             cfg = self.config
             fusable = hasattr(self.player_detector, "detect_track_batch")
             use_device_tracker = cfg.use_device_tracker
@@ -93,52 +120,80 @@ class VideoProcessor:
                 self.tracker = DeviceByteTrack.from_config(cfg, self.device)
             else:
                 self.tracker = ByteTrack.from_config(cfg)
-            print("PLAYER_TRACKING without jersey-number OCR (not ported yet, "
-                  "ROADMAP.md item 4): labels show tracker ids; tracker: "
-                  + ("fused on the device" if self.use_fused_tracker else
-                     type(self.tracker).__name__))
+            tracker = ("fused on the device" if self.use_fused_tracker else
+                       type(self.tracker).__name__)
+            if teams:
+                print(f"TEAM_CLASSIFICATION; tracker: {tracker}")
+            else:
+                print("PLAYER_TRACKING without jersey-number OCR (not ported "
+                      "yet, ROADMAP.md item 4): labels show tracker ids; "
+                      f"tracker: {tracker}")
 
-    def _filter(self, det: HostDetections) -> HostDetections:
-        """Keep {player, goalkeeper} above detection_confidence (reference
+    @property
+    def _fused_features(self) -> bool:
+        return bool(getattr(self.player_detector, "with_team_features", False))
+
+    def _keep(self, det: HostDetections) -> np.ndarray:
+        """{player, goalkeeper} above detection_confidence (reference
         main.py:177-195)."""
         keep = (det.classes == PLAYER_CLASS_ID) | (det.classes == GOALKEEPER_CLASS_ID)
-        keep &= det.scores > self.config.detection_confidence
+        return keep & (det.scores > self.config.detection_confidence)
+
+    def _filter(self, det: HostDetections) -> HostDetections:
+        keep = self._keep(det)
         return HostDetections(det.boxes[keep], det.scores[keep], det.classes[keep])
 
-    def _detect_batch(self, frames: np.ndarray, n: int) -> List[HostDetections]:
+    def _detect_batch(self, frames: np.ndarray, n: int
+                      ) -> List[Tuple[HostDetections, Optional[np.ndarray]]]:
+        """Each of the batch's n frames' filtered detections and, where the
+        detector computes them, their team features (k, 4)."""
         with self.timers.stage("detect"):
-            det = Detections(*(t.cpu() for t in
-                               self.player_detector.detect_batch(frames)))
-            dets = [self._filter(HostDetections.from_padded(det, i))
-                    for i in range(n)]
-        for d in dets:
-            self.timers.count("detections", len(d))
-        return dets
-
-    def _track_batch(self, frames: np.ndarray, n: int) -> List[Tracked]:
-        """One batch of PLAYER_TRACKING: each of its n frames' tracked rows.
-        Fused, one device step and one copy to the host; else detection in
-        one batch, then the tracker frame by frame."""
-        if not self.use_fused_tracker:
+            out = self.player_detector.detect_batch(frames)
+            det, feats = out if self._fused_features else (out, None)
+            det = Detections(*(t.cpu() for t in det))
+            feats = None if feats is None else feats.cpu().numpy()
             rows = []
-            for d in self._detect_batch(frames, n):
-                with self.timers.stage("track"):
-                    rows.append(self.tracker.update(d.boxes, d.scores, d.classes))
-            return rows
-        with self.timers.stage("detect"):
-            out = self.player_detector.detect_track_batch(
-                frames, self.tracker.state)
-            self.tracker.state = out[-1]
-            self.last_track_batch = out
-            rows = unpack_tracked(out)
-        return [r[:4] for r in rows[:n]]
+            for i in range(n):
+                d = HostDetections.from_padded(det, i)
+                tf = None if feats is None else \
+                    feats[i][det.valid[i].numpy()][self._keep(d)]
+                rows.append((self._filter(d), tf))
+        for d, _ in rows:
+            self.timers.count("detections", len(d))
+        return rows
 
+    def _steps(self, frames: Iterable[np.ndarray]) -> Iterator[Tuple[np.ndarray, Dict]]:
+        """(frame, the keyword arguments of `process_frame` for it), batch
+        by batch in the mode's route."""
+        b = self.config.resolved_frame_batch(self.device)
+        teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
+        for batch, n in batched(iter(frames), b):
+            if self.use_fused_tracker:
+                with self.timers.stage("detect"):
+                    out = self.player_detector.detect_track_batch(
+                        batch, self.tracker.state)
+                    self.tracker.state = out[-1]
+                    self.last_track_batch = out
+                    rows = unpack_tracked(out)
+                for i in range(n):
+                    yield batch[i], dict(pretracked=rows[i][:4],
+                                         team_feats=rows[i][4])
+                continue
+            for i, (det, tf) in enumerate(self._detect_batch(batch, n)):
+                # with frame batch 1 the JAX package detects each frame
+                # alone, which drops the fused features, and the classifier
+                # samples its crops from the frame instead
+                yield batch[i], dict(det=det,
+                                     team_feats=tf if teams and b > 1 else None)
+
+    # ------------------------------------------------------------------
     def detect_frames(self, frames: Iterable[np.ndarray]) -> Iterator[HostDetections]:
         """Frames (H, W, 3) uint8 -> each frame's filtered detections, run
         in device batches of `config.resolved_frame_batch`."""
         b = self.config.resolved_frame_batch(self.device)
         for batch, n in batched(iter(frames), b):
-            yield from self._detect_batch(batch, n)
+            for det, _ in self._detect_batch(batch, n):
+                yield det
 
     def track_frames(self, frames: Iterable[np.ndarray]) -> Iterator[Tracked]:
         """Frames (H, W, 3) uint8 -> each frame's (boxes, scores, classes,
@@ -146,21 +201,149 @@ class VideoProcessor:
         device batches of `config.resolved_frame_batch` (PLAYER_TRACKING)."""
         if self.mode != ProcessingMode.PLAYER_TRACKING:
             raise ValueError("track_frames needs mode PLAYER_TRACKING")
-        b = self.config.resolved_frame_batch(self.device)
-        for batch, n in batched(iter(frames), b):
-            yield from self._track_batch(batch, n)
+        for _, kw in self._steps(frames):
+            rows = kw.get("pretracked")
+            if rows is None:
+                d = kw["det"]
+                with self.timers.stage("track"):
+                    rows = self.tracker.update(d.boxes, d.scores, d.classes)
+            yield rows
+
+    def classify_frames(self, frames: Iterable[np.ndarray]) -> Iterator[Dict]:
+        """Frames (H, W, 3) uint8 -> each frame's `last_frame_result`
+        (boxes, scores, classes, tracker_ids, team_ids: players first, then
+        goalies with team GOALIE_TEAM_ID), without drawing
+        (TEAM_CLASSIFICATION). Fit the classifier first (`fit_teams`);
+        unfitted, it takes white_ratio > 0.4 as team 0."""
+        if self.mode != ProcessingMode.TEAM_CLASSIFICATION:
+            raise ValueError("classify_frames needs mode TEAM_CLASSIFICATION")
+        for frame, kw in self._steps(frames):
+            self._tracked_result(frame, **kw)
+            yield self.last_frame_result
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _positions(boxes: np.ndarray) -> List[Tuple[float, float]]:
+        return [((b[0] + b[2]) / 2.0, (b[1] + b[3]) / 2.0) for b in boxes]
+
+    def fit_teams(self, frames: Iterable[np.ndarray]) -> int:
+        """The one-time team fit (reference main.py:197-257) on frames:
+        every `initialization_stride`-th frame, at most
+        `max_initialization_frames` + 1 of them, is detected; its players go
+        through a fresh host ByteTrack (minimum_consecutive_frames=1), and
+        the first frame with `min_players_for_selection` tracked players
+        goes to the team selector for the names; the classifier is fitted
+        on all the players' host crops. Returns the number of crops."""
+        cfg = self.config
+        crops: List[np.ndarray] = []
+        positions: List[Tuple[float, float]] = []
+        first = None
+        temp_tracker = ByteTrack.from_config(cfg, minimum_consecutive_frames=1)
+        sample = itertools.islice(
+            iter(frames), 0,
+            cfg.initialization_stride * (cfg.max_initialization_frames + 1),
+            cfg.initialization_stride)
+        b = cfg.resolved_frame_batch(self.device)
+        for batch, n in batched(sample, b):
+            for frame, (det, _) in zip(batch, self._detect_batch(batch, n)):
+                pmask = det.classes == PLAYER_CLASS_ID
+                pboxes = det.boxes[pmask]
+                tb, _, _, tids = temp_tracker.update(
+                    pboxes, det.scores[pmask], det.classes[pmask])
+                if first is None and len(tids) >= cfg.min_players_for_selection:
+                    first = (frame, tb, tids)
+                crops.extend(host_crops(frame, pboxes))
+                positions.extend(self._positions(pboxes))
+
+        selection = None if first is None else \
+            self.team_selector.select_teams(*first)
+        if selection:
+            self.team_classifier.set_team_names(selection.team_names)
+            print(f"Teams set: {selection.team_names[0]} vs "
+                  f"{selection.team_names[1]}")
+        else:
+            print("Team selection cancelled, using default team names")
+        self.team_classifier.fit(
+            crops, positions=positions,
+            frame=None if first is None else first[0],
+            detections=None if first is None else first[1:])
+        print(f"Classifier fitted on {len(crops)} crops.")
+        return len(crops)
+
+    def initialize_team_classifier(self, source_path: str) -> int:
+        """`fit_teams` on a video's frames (hockey_tpu pipeline.py:194-233)."""
+        print("Initializing team classification...")
+        return self.fit_teams(frame_generator(source_path))
+
+    # ------------------------------------------------------------------
+    def _tracked_result(self, frame: np.ndarray,
+                        det: Optional[HostDetections] = None,
+                        team_feats: Optional[np.ndarray] = None,
+                        pretracked: Optional[Tracked] = None):
+        """The tracking modes' numbers for one frame: (boxes, scores,
+        classes, tids, lookup, labels), also kept as `last_frame_result`.
+        `pretracked` rows come from the fused step (else `det` goes through
+        the tracker here, else the frame is detected here); `team_feats`
+        (k, 4) align with `pretracked`, or with `det` before the tracker."""
+        if pretracked is None:
+            if det is None:
+                with self.timers.stage("detect"):
+                    det = self._filter(self.player_detector.detect(frame))
+            with self.timers.stage("track"):
+                pretracked = self.tracker.update(det.boxes, det.scores, det.classes)
+        boxes, scores, classes, tids = pretracked
+        self.timers.count("tracks", len(tids))
+        pmask = classes == PLAYER_CLASS_ID
+        gmask = classes == GOALKEEPER_CLASS_ID
+
+        if self.mode == ProcessingMode.PLAYER_TRACKING:
+            labels = [("Goalie #" if g else "#") + str(tid)
+                      for g, tid in zip(gmask, tids)]
+            lookup = np.where(gmask, GOALIE_TEAM_ID, 0).astype(np.int32)
+        else:  # TEAM_CLASSIFICATION, the reference's main path
+            player_teams = np.array([], dtype=np.int64)
+            if pmask.any():
+                with self.timers.stage("teams"):
+                    clf = self.team_classifier
+                    if team_feats is not None and clf.supports_fused_features():
+                        tf = team_feats if det is None \
+                            else team_feats[self.tracker.last_indices]
+                        player_teams = clf.predict_features(
+                            tf[pmask], tracker_ids=tids[pmask])
+                    else:
+                        player_teams = clf.predict_from_frame(
+                            frame, boxes[pmask], tracker_ids=tids[pmask],
+                            positions=self._positions(boxes[pmask]))
+            # players, then goalies (reference main.py:287-288)
+            order = np.concatenate([np.flatnonzero(pmask), np.flatnonzero(gmask)])
+            boxes, scores, classes, tids = (boxes[order], scores[order],
+                                            classes[order], tids[order])
+            lookup = np.concatenate([
+                np.asarray(player_teams, np.int32),
+                np.full(int(gmask.sum()), GOALIE_TEAM_ID, np.int32)])
+            labels = [self.team_classifier.get_team_name(lookup[i])
+                      if classes[i] == PLAYER_CLASS_ID else "Goalie"
+                      for i in range(len(boxes))]
+        self.last_frame_result = {
+            "boxes": np.asarray(boxes), "scores": np.asarray(scores),
+            "classes": np.asarray(classes), "tracker_ids": np.asarray(tids),
+            "team_ids": lookup,
+        }
+        return boxes, scores, classes, tids, lookup, labels
 
     def process_frame(self, frame: np.ndarray,
                       det: Optional[HostDetections] = None,
+                      team_feats: Optional[np.ndarray] = None,
                       pretracked: Optional[Tracked] = None) -> np.ndarray:
-        """Draw one frame. PLAYER_DETECTION: `det`'s boxes with Player and
-        Goalie labels. PLAYER_TRACKING: `pretracked` rows (else `det` goes
-        through the tracker here), smoothed per tracker id, labelled '#id'
-        or 'Goalie #id'."""
-        if pretracked is None and det is None:
-            with self.timers.stage("detect"):
-                det = self._filter(self.player_detector.detect(frame))
+        """Draw one frame. PLAYER_DETECTION: `det`'s boxes (the frame is
+        detected here without it) with Player and Goalie labels. The
+        tracking modes: `_tracked_result`'s rows, smoothed per tracker id;
+        PLAYER_TRACKING labels '#id' or 'Goalie #id', TEAM_CLASSIFICATION
+        the team's name or 'Goalie', coloured by team."""
         if self.mode == ProcessingMode.PLAYER_DETECTION:
+            if det is None:
+                with self.timers.stage("detect"):
+                    det = self._filter(self.player_detector.detect(frame))
             with self.timers.stage("annotate"):
                 lookup = np.where(det.classes == GOALKEEPER_CLASS_ID,
                                   GOALIE_TEAM_ID, 0).astype(np.int32)
@@ -170,20 +353,8 @@ class VideoProcessor:
                                                   lookup)
                 return self.label_annotator.annotate(out, det.boxes, labels, lookup)
 
-        if pretracked is None:
-            with self.timers.stage("track"):
-                pretracked = self.tracker.update(det.boxes, det.scores, det.classes)
-        boxes, scores, classes, tids = pretracked
-        self.timers.count("tracks", len(tids))
-        gmask = classes == GOALKEEPER_CLASS_ID
-        labels = [("Goalie #" if g else "#") + str(tid)
-                  for g, tid in zip(gmask, tids)]
-        lookup = np.where(gmask, GOALIE_TEAM_ID, 0).astype(np.int32)
-        self.last_frame_result = {
-            "boxes": np.asarray(boxes), "scores": np.asarray(scores),
-            "classes": np.asarray(classes), "tracker_ids": np.asarray(tids),
-            "team_ids": lookup,
-        }
+        boxes, scores, _, tids, lookup, labels = self._tracked_result(
+            frame, det, team_feats, pretracked)
         with self.timers.stage("annotate"):
             out = self.smooth_annotator.annotate(frame.copy(), boxes, tids,
                                                  scores, lookup)
@@ -191,31 +362,35 @@ class VideoProcessor:
 
     def process_video(self, source_path: str,
                       limit: Optional[int] = None) -> Iterator[np.ndarray]:
-        """Annotated frames of a video: the mode's device step in batches,
-        then drawing frame by frame in order."""
-        b = self.config.resolved_frame_batch(self.device)
-        tracking = self.mode == ProcessingMode.PLAYER_TRACKING
-        for frames, n in batched_frame_generator(source_path, b, limit=limit):
-            if tracking:
-                for i, rows in enumerate(self._track_batch(frames, n)):
-                    yield self.process_frame(frames[i], pretracked=rows)
-            else:
-                for i, det in enumerate(self._detect_batch(frames, n)):
-                    yield self.process_frame(frames[i], det)
+        """Annotated frames of a video: in TEAM_CLASSIFICATION the one-time
+        team fit first, then the mode's device step in batches and drawing
+        frame by frame in order."""
+        if self.mode == ProcessingMode.TEAM_CLASSIFICATION:
+            self.initialize_team_classifier(source_path)
+        frames = frame_generator(source_path, limit=limit)
+        if self.mode == ProcessingMode.PLAYER_DETECTION:
+            b = self.config.resolved_frame_batch(self.device)
+            for batch, n in batched(frames, b):
+                for i, (det, _) in enumerate(self._detect_batch(batch, n)):
+                    yield self.process_frame(batch[i], det)
+            return
+        for frame, kw in self._steps(frames):
+            yield self.process_frame(frame, **kw)
 
 
 def unpack_tracked(out) -> List[Tuple]:
     """The fused step's output -> per-frame host rows (boxes, scores,
-    classes, tids, None), keeping only detections that acquired an
-    emittable track id, from the one `packed` tensor: one device-to-host
-    copy per batch (hockey_tpu pipeline.py:476-491; the port's fused step
-    always packs)."""
+    classes, tids, team features (k, 4) or None), keeping only detections
+    that acquired an emittable track id, from the one `packed` tensor: one
+    device-to-host copy per batch (hockey_tpu pipeline.py:476-491; the
+    port's fused step always packs)."""
     arr = out[3].cpu().numpy()
     rows = []
     for i in range(arr.shape[0]):
         r = arr[i][arr[i, :, 6] >= 0]
         rows.append((r[:, :4], r[:, 4], r[:, 5].astype(np.int32),
-                     r[:, 6].astype(np.int32), None))
+                     r[:, 6].astype(np.int32),
+                     r[:, 7:] if arr.shape[-1] > 7 else None))
     return rows
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's detect step goes, on one GPU.
 
-    python3 scripts/torch_detect_profile.py [--track] [--out F]
+    python3 scripts/torch_detect_profile.py [--track | --teams] [--out F]
 
 Runs `Detector.detect_batch` (the shipped YOLOv8x player detector, bf16)
 on seeded synthetic 1080p frames (736x1280 network input; the frames of
@@ -16,6 +16,8 @@ after 3 warm-up batches, and reports from that one trace:
   launched in;
 - the device busy share: the device time of all kernels and copies over
   the wall time of the profiled loop;
+- the host-to-device copies per batch (the frames are one; the step's
+  constants are built on the device once, at warm-up);
 - the CUDA kernels with the most device time.
 
 With `--track` it profiles the fused detect + track step instead,
@@ -39,6 +41,14 @@ batch (T = 128, D = 64), over 104 frames of the same scene, and adds:
   `update` calls timed by the host clock: the cost of the host path's
   tracker beside the fused one (not the same semantics: the host path
   starves ByteTrack's low-score stage).
+
+With `--teams` it profiles the fused step of TEAM_CLASSIFICATION, the
+same as `--track` with the detector's team branch on (`Detector(...,
+with_team_features=True)`, packed (8, 64, 11)), and adds the device ms,
+host ms and CUDA kernel launches per batch of the `team_features` range,
+and the branch alone (`team_features` on the last profiled batch's frames
+and boxes, 10 calls under the profiler): the device ms of its kernels per
+call, its kernels per call and those with the most device time.
 
 Prints one JSON object as its last line (and writes it to `--out` when
 given). Needs CUDA.
@@ -67,7 +77,11 @@ from chip_smoke import (  # noqa: E402
     synthetic_frames,
 )
 from hockey_tpu_torch.core.config import Config  # noqa: E402
-from hockey_tpu_torch.models.detector import Detector, tracker_inputs  # noqa: E402
+from hockey_tpu_torch.models.detector import (  # noqa: E402
+    Detector,
+    team_features,
+    tracker_inputs,
+)
 from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import init_state  # noqa: E402
@@ -77,6 +91,7 @@ WARMUP = 3
 STAGES = ("upload", "letterbox", "forward", "decode", "nms_candidates",
           "nms_suppress", "nms_select_unmap")
 TRACK_STAGES = STAGES + ("tracker_scan", "pack")
+TEAM_STAGES = STAGES + ("team_features", "tracker_scan", "pack")
 ALONE_TURNS = 4
 
 
@@ -95,12 +110,39 @@ def tracker_alone(inputs, kwargs, capacity):
     return {m: [round(x, 4) for x in v] for m, v in out.items()}
 
 
+def team_alone(frames, boxes, calls: int = 10):
+    """{the device ms of its kernels per call, kernels per call, the top
+    kernels' device ms and count per call} of the team branch alone, with
+    the step's memoised matrices."""
+    x = torch.as_tensor(frames).to("cuda")
+    with torch.inference_mode():
+        team_features(x, boxes)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                team_features(x, boxes)
+            torch.cuda.synchronize()
+    kernels = sorted(((e.key[:100], e.self_device_time_total / 1e3 / calls,
+                       e.count / calls) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda k: -k[1])
+    return {"kernel_ms_per_call": round(sum(k[1] for k in kernels), 4),
+            "kernels_per_call": sum(k[2] for k in kernels),
+            "top_kernels_ms_per_call": [[k, round(t, 4), n]
+                                        for k, t, n in kernels[:12]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--track", action="store_true",
                     help="profile the fused detect + track step")
+    ap.add_argument("--teams", action="store_true",
+                    help="profile the fused detect + track step with the "
+                         "team branch (TEAM_CLASSIFICATION)")
     args = ap.parse_args()
+    track = args.track or args.teams
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
@@ -111,9 +153,9 @@ def main() -> int:
 
     cfg = Config()
     det = Detector(cfg.player_model_name, cfg, frame_hw=FRAME_HW, device="cuda",
-                   dtype=torch.bfloat16)
-    stages = TRACK_STAGES if args.track else STAGES
-    if args.track:
+                   dtype=torch.bfloat16, with_team_features=args.teams)
+    stages = TEAM_STAGES if args.teams else TRACK_STAGES if track else STAGES
+    if track:
         frames = synthetic_frames(seed=0, n=BATCH * (WARMUP + ITERS))
         batches = [frames[BATCH * i:BATCH * (i + 1)]
                    for i in range(WARMUP + ITERS)]
@@ -159,6 +201,8 @@ def main() -> int:
     busy_ms = sum(k[1] for k in kernels)
     stage_ms["nms_suppress"] = sum(ms for k, ms, _ in kernels
                                    if KERNEL_NAME in k) / ITERS
+    h2d = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "Memcpy HtoD" in e.name]
     result = {
         "card": card,
         "device": torch.cuda.get_device_name(0),
@@ -170,9 +214,18 @@ def main() -> int:
         "wall_ms_per_batch": round(wall_ms / ITERS, 4),
         "frames_per_s": round(1e3 * BATCH * ITERS / wall_ms, 3),
         "device_busy_share": round(busy_ms / wall_ms, 4),
+        "h2d_copies_per_batch": len(h2d) / ITERS,
         "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in kernels[:15]],
     }
-    if args.track:
+    if args.teams:
+        result.update({
+            "team_features_host_ms_per_batch": round(host_ms["team_features"], 4),
+            "team_features_launches_per_batch": launches_in(
+                prof, "team_features") / ITERS,
+            "team_features_alone": team_alone(
+                batches[-1], outs[-1][0].boxes),
+        })
+    if track:
         kwargs = det.tracker_kwargs()
         inputs = [tracker_inputs(o[0]) for o in outs[WARMUP:]]
         alone = tracker_alone(inputs, kwargs, cfg.max_tracks)

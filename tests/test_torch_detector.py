@@ -130,13 +130,15 @@ def test_entry_points_refuse_what_the_slice_lacks():
             Detector(PLAYER)
         with pytest.raises(RuntimeError, match="CUDA"):
             VideoProcessor()
-    for mode in (ProcessingMode.TEAM_CLASSIFICATION, ProcessingMode.PUCK_DETECTION):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VideoProcessor(mode=mode, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Detector(PLAYER, device="cpu", with_team_features=True)
+        VideoProcessor(mode=ProcessingMode.PUCK_DETECTION, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Detector("hockey-detection", device="cpu")
+    # TEAM_CLASSIFICATION and the fused team features are ported now
+    det = Detector(PLAYER, device="cpu", imgsz=128, with_team_features=True)
+    vp = VideoProcessor(mode=ProcessingMode.TEAM_CLASSIFICATION, device="cpu",
+                        player_detector=det)
+    assert vp.player_detector.with_team_features
 
 
 def test_config_matches_jax_and_batch_rule():

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: hockey_tpu_torch imports neither JAX nor
 the JAX package, builds no kernel through torch.utils.cpp_extension, and
-everything chip_smoke.py imports, the tracker and the PLAYER_TRACKING
-modules among it, also loads without cv2, msgpack or sklearn (the GPU
-machine has none of them)."""
+everything chip_smoke.py imports, the tracker, the PLAYER_TRACKING
+modules and the team modules of TEAM_CLASSIFICATION among it, also loads
+without cv2, msgpack or sklearn (the GPU machine has none of them)."""
 
 import os
 import re
@@ -43,7 +43,11 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.tracking.device_tracker",
     "hockey_tpu_torch.tracking.bytetrack", "hockey_tpu_torch.tracking.kalman",
     "hockey_tpu_torch.annotate.smooth", "hockey_tpu_torch.annotate.stabilizers",
-    "hockey_tpu_torch.annotate.draw")
+    "hockey_tpu_torch.annotate.draw", "hockey_tpu_torch.ops.color",
+    "hockey_tpu_torch.ops.crop_resize", "hockey_tpu_torch.teams.base",
+    "hockey_tpu_torch.teams.features", "hockey_tpu_torch.teams.kmeans",
+    "hockey_tpu_torch.teams.segmentation", "hockey_tpu_torch.teams.simple",
+    "hockey_tpu_torch.teams.facade", "hockey_tpu_torch.ui.team_selector")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
@@ -58,8 +62,8 @@ assert not leaked, leaked
 """
 
 CASES = {
-    "package_without_jax": (("jax", "flax", "optax", "hockey_tpu"),
-                            _IMPORT_PACKAGE),
+    "package_without_jax": (("jax", "flax", "optax", "hockey_tpu", "cv2",
+                             "msgpack", "sklearn"), _IMPORT_PACKAGE),
     "chip_smoke_closure": (("jax", "flax", "optax", "hockey_tpu", "cv2",
                             "msgpack", "sklearn"), _IMPORT_SMOKE),
 }

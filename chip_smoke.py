@@ -10,8 +10,9 @@ Phases, each announced on its own line with the elapsed seconds:
    hockey_tpu_torch/csrc/nms_suppress.cu;
 3. kernel: the kernel against its plain PyTorch version on the card,
    bit for bit, on the seeded cases of `kernel_cases` (IoU and containment
-   matrices at B=8, K=256, ties, all-invalid, K=100, and the bitmask's
-   edges: K=1, K=33, K=1024, B=1, all overlapping, NaN entries); on the
+   matrices at B=8, K=256, ties, all-invalid, K=100, the bitmask's
+   edges: K=1, K=33, K=1024, B=1, all overlapping, NaN entries, and the
+   puck path's shapes: B=64 K=256, B=8 K=64, B=8 K=32); on the
    dense containment case, the kernel's device time per launch (from a
    torch.profiler trace), the wrapper's call time (CUDA events over
    back-to-back calls), the plain version's time and the bound;
@@ -39,8 +40,11 @@ Phases, each announced on its own line with the elapsed seconds:
    clock, from a replay of `tracker_scan` on the card over the run's own
    detections), host syncs per batch (counted in `auction_match`), CUDA
    kernel launches per batch in the tracker (torch.profiler), the count
-   of distinct ids and id switches against the generator's own players,
-   and these numbers as one JSON line;
+   of distinct ids and id switches against the generator's own players;
+   the jersey-number reader (the digit net on the card) must have read
+   crops, whose card logits must match the same net on the CPU in f32
+   within 1e-3 with equal argmax; it prints the reads and the reader's
+   host ms per batch; and these numbers as one JSON line;
 6. TEAM_CLASSIFICATION, the reference's main path: a VideoProcessor in
    that mode builds its own detector with the team branch; `fit_teams`
    fits the team classifier on every 10th of the same 24 frames, then
@@ -60,7 +64,19 @@ Phases, each announced on its own line with the elapsed seconds:
    batch, the `team_features` range's device ms and launches per batch
    (torch.profiler), the fit's seconds and crop count and the accuracy,
    as one JSON line;
-7. the kernel table as one JSON line, then the result line.
+7. PUCK_DETECTION: a VideoProcessor in that mode builds the sliced
+   YOLOv8s (bf16, 8 tiles of 640 per 1080p frame); `puck_frames` runs
+   3 batches of 8 frames of the same scene with a puck drawn on a
+   straight pass. The kernel must launch exactly twice per batch (per-tile
+   NMS at B = 64, K = 256; the merge at B = 8, K = 64); on the last batch
+   both call sites must keep the plain suppression's set and give the
+   run's boxes; the kernel's device, call, plain and bound times at both
+   sites; the per-tile top-256 candidate scores of the last batch from the
+   card must be within 0.05 of an f32 CPU run, which must find the puck; the
+   tracker's centre must lie within 16 px of the drawn puck on at least
+   3/4 of the frames after its 2-frame acquisition. It prints frames/s,
+   ms per batch and these numbers as one JSON line;
+8. the kernel table as one JSON line, then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
@@ -88,8 +104,9 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     team_features,
     tracker_inputs,
 )
+from hockey_tpu_torch.ocr.digits import DigitNet, load_default_params  # noqa: E402
 from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
-from hockey_tpu_torch.ops.nms import suppression_matrix  # noqa: E402
+from hockey_tpu_torch.ops.nms import nms_select, suppression_matrix  # noqa: E402
 from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
     build_library,
     suppress,
@@ -97,6 +114,7 @@ from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
 )
 from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
+from hockey_tpu_torch.slicing.sahi import MERGE_MAX_DET, SlicedDetector  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
     init_state,
@@ -275,6 +293,22 @@ def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
     return out
 
 
+def puck_path(n: int) -> np.ndarray:
+    """(n, 2) centres of the drawn puck: a straight pass across the rink,
+    22 px per frame to the right and 4 down, from (420, 560)."""
+    return np.array([420.0, 560.0]) + np.arange(n)[:, None] * [22.0, 4.0]
+
+
+def puck_scene(seed: int, n: int) -> np.ndarray:
+    """`synthetic_frames` with a puck drawn over the players on
+    `puck_path`: a dark ellipse (20, 18, 18), 11 x 7 px half-axes, the
+    JAX scene generator's puck for a player about 115 px tall."""
+    out = synthetic_frames(seed, n)
+    for f, (x, y) in zip(out, puck_path(n)):
+        _ellipse(f, x, y, 11, 7, (20, 18, 18))
+    return out
+
+
 # --------------------------------------------------------------------------
 
 def card_line() -> str:
@@ -292,7 +326,11 @@ KERNEL_CASES = (
     # in dynamic shared memory, one frame, only candidate 0 surviving, and
     # NaN entries (NaN > thr is false)
     "iou B=8 K=1", "iou B=8 K=33", "iou B=8 K=1024", "iou B=1 K=256",
-    "all-overlapping B=8 K=256", "NaN entries B=8 K=256")
+    "all-overlapping B=8 K=256", "NaN entries B=8 K=256",
+    # the puck path's shapes: per-tile NMS over 8 tiles of 8 frames (64
+    # clusters), and the cross-tile merge at K = min(64, T * 8) for T = 8
+    # tiles (1080p) and T = 4 (960x960): one or two mask words
+    "iou B=64 K=256", "iou B=8 K=64", "iou B=8 K=32")
 
 
 def kernel_cases(dev):
@@ -338,6 +376,9 @@ def kernel_cases(dev):
          torch.ones(8, 256, dtype=torch.bool, device=dev), 0.45),
         (nan, keep(8, 256), 0.45),
     ]
+    puck = {k: boxes(b, k) for b, k in ((64, 256), (8, 64), (8, 32))}
+    inputs += [(box_iou(x, x), keep(*x.shape[:2]), thr) for x, thr in
+               ((puck[256], 0.45), (puck[64], 0.5), (puck[32], 0.5))]
     return [(name, *x) for name, x in zip(KERNEL_CASES, inputs, strict=True)]
 
 
@@ -443,6 +484,153 @@ def match_fraction(a, b, iou_min=0.8):
     iou = box_iou(torch.from_numpy(a.boxes), torch.from_numpy(b.boxes)).numpy()
     same = a.classes[:, None] == b.classes[None, :]
     return float(((iou >= iou_min) & same).any(axis=1).mean())
+
+
+def ocr_check(ocr, calls, timers):
+    """The jersey-number reader of phase 5: its reads, its host ms per
+    batch, and the digit net's card logits on every crop it read against
+    the same net on the CPU in f32 (tolerance 1e-3: f32 on both sides,
+    TF32 off; the argmax must be equal). Returns the numbers for the
+    tracking JSON line."""
+    if not calls:
+        raise AssertionError("the reader read no crop")
+    crops = torch.cat([c[0] for c in calls]).cpu()
+    cpu_net = DigitNet.from_params(load_default_params())
+    with torch.inference_mode():
+        ref = cpu_net(crops)
+    err = max(float((c.cpu() - r).abs().max()) for c, r in
+              zip((torch.cat([c[1] for c in calls]),
+                   torch.cat([c[2] for c in calls])), ref))
+    same = all(torch.equal(torch.cat([c[i] for c in calls]).cpu().argmax(-1),
+                           r.argmax(-1)) for i, r in ((1, ref[0]), (2, ref[1])))
+    ocr_ms = 1e3 * timers.totals["ocr"] / N_BATCHES
+    print(f"jersey OCR: {len(crops)} crops in {len(calls)} forwards, reads "
+          f"{dict(sorted(ocr.numbers.items()))}, host {ocr_ms:.3f} ms per "
+          f"batch; digit logits card vs CPU f32: max |diff| {err:.2e} "
+          f"(tolerance 1e-3), argmax equal: {same}", flush=True)
+    if err > 1e-3 or not same:
+        raise AssertionError("card digit logits disagree with the CPU")
+    return {"ocr_crops_read": len(crops), "ocr_forwards": len(calls),
+            "ocr_reads": {str(k): v for k, v in sorted(ocr.numbers.items())},
+            "ocr_host_ms_per_batch": round(ocr_ms, 3),
+            "ocr_logit_max_abs_err": err}
+
+
+def puck_phase(config, max_err):
+    """Phase 7; returns (kernel launches over puck_frames, max_err)."""
+    frames = puck_scene(seed=0, n=BATCH * N_BATCHES)
+    t = time.perf_counter()
+    vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                        mode=ProcessingMode.PUCK_DETECTION)
+    sd = vp.puck_pipeline.sliced
+    print(f"sliced YOLOv8s ready in {time.perf_counter() - t:.2f} s: "
+          f"{len(sd.grid)} tiles of {sd.size} per frame {sd.grid}, "
+          f"{sd.detector.dtype}", flush=True)
+    if len(sd.grid) != 8 or sd.detector.dtype != torch.bfloat16:
+        raise AssertionError("the puck path is not 8 bf16 tiles per frame")
+
+    suppress.launches = 0
+    results, marks = [], []
+    t = time.perf_counter()
+    for r in vp.puck_frames(iter(frames)):
+        results.append(r)
+        if len(results) % BATCH == 0:
+            marks.append(time.perf_counter())
+    launches_p = suppress.launches
+    fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+    batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
+    print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
+    print(f"frames/s after the first batch: {fps:.2f}", flush=True)
+    print(f"nms_suppress launches per batch: {launches_p / N_BATCHES} "
+          f"(per-tile NMS and the merge)", flush=True)
+    if len(results) != BATCH * N_BATCHES:
+        raise AssertionError(f"{len(results)} frames out, {BATCH * N_BATCHES} in")
+    if launches_p != 2 * N_BATCHES:
+        raise AssertionError(f"kernel launched {launches_p} times, not "
+                             f"{2 * N_BATCHES}")
+    for r in results:
+        if not (np.isfinite(r.boxes).all() and np.isfinite(r.scores).all()):
+            raise AssertionError("non-finite puck detections")
+
+    # the last batch again through both call sites: the kernel's kept set
+    # against the plain suppression's, and the merged boxes of the run
+    last = torch.as_tensor(frames[-BATCH:]).to("cuda")
+    core = sd.detector.core
+    with torch.inference_mode():
+        cand = core.candidates(sd.detector.model, sd.tiles(last))
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+        mc = sd.merge_candidates(core.finish(cand, keep_k))
+        mkeep_k = suppress(mc.matrix, mc.keep0, mc.thr)
+        mkeep_r = suppress_reference(mc.matrix, mc.keep0, mc.thr)
+        merged = nms_select(mc, mkeep_k, score_threshold=config.puck_confidence,
+                            max_det=MERGE_MAX_DET)
+    torch.cuda.synchronize()
+    same = torch.equal(keep_k, keep_r) and torch.equal(mkeep_k, mkeep_r)
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()),
+                  float((mkeep_k.int() - mkeep_r.int()).abs().max()))
+    print(f"puck per-tile NMS B={tuple(cand.keep0.shape)}: kept "
+          f"{int(keep_k.sum())} of {int(cand.keep0.sum())}; merge "
+          f"B={tuple(mc.keep0.shape)}: kept {int(mkeep_k.sum())} of "
+          f"{int(mc.keep0.sum())}; kernel kept sets == plain kept sets: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("puck-path kept sets differ from the plain version")
+    for i, r in enumerate(results[-BATCH:]):
+        v = merged.valid[i].cpu()
+        if not np.array_equal(merged.boxes[i][v].cpu().numpy(), r.boxes):
+            raise AssertionError(f"the call sites differ from the run, frame {i}")
+    sites = {"tile": time_kernel(
+        f"puck per-tile NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}",
+        cand.matrix, cand.keep0, cand.thr)}
+    sites["merge"] = time_kernel(
+        f"puck merge B={mc.keep0.shape[0]} K={mc.keep0.shape[1]}",
+        mc.matrix, mc.keep0, mc.thr)
+
+    # the per-tile top-256 candidate scores of the last batch: bf16 on the
+    # card against an f32 CPU run (tolerance 0.05, a bf16 forward's sigmoid
+    # scores); the CPU run must find the puck in some tile
+    t = time.perf_counter()
+    ref_sd = SlicedDetector(config, FRAME_HW, device="cpu",
+                            dtype=torch.float32)
+    with torch.inference_mode():
+        ref = ref_sd.detector.core.candidates(
+            ref_sd.detector.model, ref_sd.tiles(torch.from_numpy(frames[-BATCH:])))
+    score_err = float((cand.scores.cpu() - ref.scores).abs().max())
+    found = int((ref.scores[:, 0] > config.puck_confidence).sum())
+    print(f"per-tile top-{ref.scores.shape[1]} scores, {ref.scores.shape[0]} "
+          f"tiles, card bf16 vs CPU f32 ({time.perf_counter() - t:.1f} s): max "
+          f"|diff| {score_err:.4f} (tolerance 0.05); tiles whose best CPU score "
+          f"is above {config.puck_confidence}: {found}", flush=True)
+    if score_err > 0.05 or not found:
+        raise AssertionError("card puck scores disagree with the f32 CPU run")
+
+    # the tracker's centres against the drawn puck
+    path = puck_path(len(results))
+    err = [None if r.center is None else
+           round(float(np.linalg.norm(np.asarray(r.center) - p)), 2)
+           for r, p in zip(results, path)]
+    near = sum(e is not None and e <= 16.0 for e in err[2:])
+    print(f"tracker centre - drawn puck (px) per frame: {err}", flush=True)
+    print(f"within 16 px on {near} of {len(err) - 2} frames after the "
+          f"tracker's 2-frame acquisition", flush=True)
+    if near < 0.75 * (len(err) - 2):
+        raise AssertionError("the puck tracker lost the drawn puck")
+    puck = {
+        "frames_per_s_after_first_batch": round(fps, 2),
+        "ms_per_batch": [round(x, 2) for x in batch_ms],
+        "kernel_launches_per_batch": launches_p / N_BATCHES,
+        "tiles_per_frame": len(sd.grid),
+        "tile_nms_shape": list(cand.keep0.shape),
+        "merge_nms_shape": list(mc.keep0.shape),
+        "kernel_at_tile_site": sites["tile"],
+        "kernel_at_merge_site": sites["merge"],
+        "tile_score_max_abs_err": round(score_err, 5),
+        "centre_within_16px": near,
+        "centre_err_px": err,
+    }
+    print(json.dumps({"puck": puck}), flush=True)
+    return launches_p, max_err
 
 
 def team_phase(config, frames, max_err, track_fps):
@@ -724,6 +912,12 @@ def main() -> int:
     if not (vp_t.use_fused_tracker and isinstance(vp_t.tracker, DeviceByteTrack)):
         raise AssertionError("PLAYER_TRACKING on CUDA did not take the fused "
                              "device tracker")
+    ocr = vp_t.ocr
+    if ocr.backend != "digits" or next(ocr.net.buffers()).device.type != "cuda":
+        raise AssertionError("PLAYER_TRACKING has no digit reader on the card")
+    ocr_calls = []  # (crops, tens logits, ones logits) of each forward
+    ocr.net.register_forward_hook(
+        lambda mod, inp, out: ocr_calls.append((inp[0], *out)))
     st = assignment.stats
     suppress.launches = 0
     st.syncs = st.rounds = st.fill_steps = 0
@@ -824,6 +1018,7 @@ def main() -> int:
           flush=True)
     print(f"distinct ids {n_ids}, id switches against the generator's players "
           f"{switches}", flush=True)
+    tracking.update(ocr_check(ocr, ocr_calls, vp_t.timers))
     print(json.dumps({"tracking": tracking}), flush=True)
 
     phase("6 TEAM_CLASSIFICATION: fit_teams, then the fused detect + track + "
@@ -832,14 +1027,18 @@ def main() -> int:
         raise AssertionError("TF32 is on: the crop products must be f32")
     launches_c, max_err = team_phase(config, frames, max_err, track_fps)
 
-    phase("7 results")
+    phase("7 PUCK_DETECTION: YOLOv8s bf16 on 8 tiles of 640 per 1080p frame, "
+          "VideoProcessor.puck_frames")
+    launches_p, max_err = puck_phase(config, max_err)
+
+    phase("8 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches + launches_t + launches_c,
+        "launches": launches + launches_t + launches_c + launches_p,
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

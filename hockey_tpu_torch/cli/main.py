@@ -1,11 +1,11 @@
 """CLI entry point of the port (the flags of hockey_tpu/cli/main.py that
-the PLAYER_DETECTION, PLAYER_TRACKING and TEAM_CLASSIFICATION modes use;
-TEAM_CLASSIFICATION is the default, as there).
+the four modes use; TEAM_CLASSIFICATION is the default, as there).
 
     python -m hockey_tpu_torch.cli.main --source_path in.mp4 \
         --target_path out.mp4 --headless [--team-names "HOME,AWAY"] \
-        [--mode TEAM_CLASSIFICATION|PLAYER_TRACKING|PLAYER_DETECTION] \
+        [--mode TEAM_CLASSIFICATION|PLAYER_TRACKING|PLAYER_DETECTION|PUCK_DETECTION] \
         [--device cuda|cpu] [--conf X] [--annotator box|ellipse|styled] \
+        [--checkpoint F] [--puck-checkpoint F] \
         [--imgsz N] [--frame-batch N] [--limit-frames N]
 """
 
@@ -29,15 +29,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default) or 'cpu'.")
     p.add_argument("--mode", type=str, default="TEAM_CLASSIFICATION",
                    choices=[m.value for m in ProcessingMode],
-                   help="Processing mode; the port runs TEAM_CLASSIFICATION, "
-                        "PLAYER_TRACKING and PLAYER_DETECTION (PUCK_DETECTION "
-                        "raises).")
+                   help="Processing mode (default TEAM_CLASSIFICATION).")
     p.add_argument("--headless", action="store_true",
                    help="No OpenCV windows; use default/provided team names.")
     p.add_argument("--team-names", type=str, default=None,
                    help="Comma-separated 'HOME,AWAY' names (headless init).")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Player-model msgpack checkpoint.")
+    p.add_argument("--puck-checkpoint", type=str, default=None,
+                   help="Puck-model msgpack checkpoint (PUCK_DETECTION).")
     p.add_argument("--frame-batch", type=int, default=None,
                    help="Frames per device detection batch.")
     p.add_argument("--imgsz", type=int, default=None,
@@ -84,6 +84,7 @@ def main(argv=None) -> int:
         mode=ProcessingMode(args.mode),
         frame_hw=(info.height, info.width),
         checkpoint=args.checkpoint,
+        puck_checkpoint=args.puck_checkpoint,
         team_names=team_names,
     )
     n = process_video_with_display(processor, args.source_path,

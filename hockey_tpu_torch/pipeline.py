@@ -1,14 +1,16 @@
-"""The VideoProcessor: port of hockey_tpu/pipeline.py for the modes
-PLAYER_DETECTION, PLAYER_TRACKING and TEAM_CLASSIFICATION (the
-reference's main path and the default mode): the batched loop (:388-474),
-the tracker choice (:120-155), the one-time team fit
-(`initialize_team_classifier`, :194-233), the modes' branches of
-`process_frame` (:261-363) and `unpack_tracked` (:476-502).
+"""The VideoProcessor: port of hockey_tpu/pipeline.py for all four modes,
+PLAYER_DETECTION, PLAYER_TRACKING (with jersey-number OCR),
+TEAM_CLASSIFICATION (the reference's main path and the default mode) and
+PUCK_DETECTION: the batched loop (:388-474), the tracker choice
+(:120-155), the OCR reader (:164-168), the puck pipeline (:110-116,
+404-420), the one-time team fit (`initialize_team_classifier`, :194-233),
+the modes' branches of `process_frame` (:250-363) and `unpack_tracked`
+(:476-502).
 
-The numeric part needs no OpenCV: `detect_frames`, `track_frames` and
-`classify_frames` turn any iterable of frames into per-frame results, and
-`fit_teams` fits the team classifier on frames. `process_video` reads a
-video, runs the same steps and draws.
+The numeric part needs no OpenCV: `detect_frames`, `track_frames`,
+`classify_frames` and `puck_frames` turn any iterable of frames into
+per-frame results, and `fit_teams` fits the team classifier on frames.
+`process_video` reads a video, runs the same steps and draws.
 
 TEAM_CLASSIFICATION takes one of three routes, as in the JAX package:
 - fused: on CUDA with a frame batch above 1, one device step per batch
@@ -20,16 +22,17 @@ TEAM_CLASSIFICATION takes one of three routes, as in the JAX package:
 - frame-sequential (frame batch 1, the CPU's default): detection per
   frame, then crops sampled from the frame on the device for the tracked
   players (`predict_from_frame`).
-
-PLAYER_TRACKING runs without jersey-number OCR: the reference's
-no-backend path (hockey_tpu ocr/jersey.py:43-49, `digit_params=False`),
-so its labels carry tracker ids only. OCR is ROADMAP.md item 4.
+PLAYER_TRACKING takes the first two routes without the team features;
+its labels carry the jersey number that `ocr/jersey.py` has read for a
+track. PUCK_DETECTION runs the sliced puck detector in batches of up to
+16 frames (frame by frame at frame batch 1) and the puck tracker on the
+host.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -44,7 +47,9 @@ from .core.config import (
 )
 from .core.device import resolve_device
 from .models.detector import Detector, HostDetections
+from .ocr.jersey import JerseyNumberReader
 from .ops.nms import Detections
+from .slicing.sahi import PuckPipeline
 from .teams.base import host_crops
 from .teams.facade import TeamClassifier
 from .tracking.bytetrack import ByteTrack
@@ -53,18 +58,29 @@ from .ui.team_selector import InteractiveTeamSelector
 from .utils.metrics import StageTimers
 from .video.io import VideoInfo, batched, frame_generator
 
-PORTED_MODES = (ProcessingMode.PLAYER_DETECTION, ProcessingMode.PLAYER_TRACKING,
-                ProcessingMode.TEAM_CLASSIFICATION)
 _TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
                    ProcessingMode.TEAM_CLASSIFICATION)
+# PUCK_DETECTION's frames per device step at most: each frame is T tiles
+# (hockey_tpu pipeline.py:404-410)
+PUCK_MAX_BATCH = 16
 
 # (boxes (n, 4), scores (n,), classes (n,) int32, tracker_ids (n,) int32)
 Tracked = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
 
+class PuckResult(NamedTuple):
+    """One frame of PUCK_DETECTION: the merged detections, the tracker's
+    smoothed position and the centre of the detection it selected (None
+    where it has none)."""
+
+    boxes: np.ndarray    # (n, 4) xyxy in frame pixels, n <= 4
+    scores: np.ndarray   # (n,)
+    center: Optional[Tuple[float, float]]
+    detection: Optional[Tuple[float, float]]
+
+
 class VideoProcessor:
-    """Orchestrator of the ported modes; PUCK_DETECTION raises, naming
-    ROADMAP.md.
+    """Orchestrator of the four modes.
 
     Tracker choice (hockey_tpu pipeline.py:120-155), in PLAYER_TRACKING
     and TEAM_CLASSIFICATION: with `config.use_device_tracker` None,
@@ -80,15 +96,14 @@ class VideoProcessor:
         mode: ProcessingMode = ProcessingMode.TEAM_CLASSIFICATION,
         frame_hw: Tuple[int, int] = (1080, 1920),
         checkpoint: Optional[str] = None,
+        puck_checkpoint: Optional[str] = None,
         team_names: Optional[Tuple[str, str]] = None,
         player_detector=None,
+        dtype=None,
     ):
+        """`dtype`: the detectors' compute type (default bf16 on CUDA, f32
+        on the CPU)."""
         self.mode = ProcessingMode(mode)
-        if self.mode not in PORTED_MODES:
-            raise NotImplementedError(
-                f"mode {self.mode.value}: the port runs PLAYER_DETECTION, "
-                "PLAYER_TRACKING and TEAM_CLASSIFICATION so far; see "
-                "ROADMAP.md for the slices still to come")
         self.config = config or Config()
         self.device = resolve_device(device)
         self.frame_hw = frame_hw
@@ -96,9 +111,21 @@ class VideoProcessor:
         self.last_frame_result = None  # set per frame in the tracking modes
         self.last_track_batch = None   # the fused step's last raw output
         teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
-        self.player_detector = player_detector or Detector(
-            self.config.player_model_name, self.config, frame_hw=frame_hw,
-            checkpoint=checkpoint, device=self.device, with_team_features=teams)
+        self.puck_pipeline = None
+        if self.mode == ProcessingMode.PUCK_DETECTION:
+            # the JAX VideoProcessor also builds the YOLOv8x player
+            # detector in this mode and never runs it; the port does not
+            # build it (the puck pipeline builds its own where player
+            # demotion is on)
+            self.player_detector = None
+            self.puck_pipeline = PuckPipeline(
+                self.config, frame_hw=frame_hw, checkpoint=puck_checkpoint,
+                device=self.device, dtype=dtype)
+        else:
+            self.player_detector = player_detector or Detector(
+                self.config.player_model_name, self.config, frame_hw=frame_hw,
+                checkpoint=checkpoint, device=self.device, dtype=dtype,
+                with_team_features=teams)
         self.box_annotator, self.label_annotator = make_annotators(self.config)
         self.smooth_annotator = SmoothAnnotator(
             self.box_annotator, smoothing_factor=self.config.smoothing_factor,
@@ -106,6 +133,9 @@ class VideoProcessor:
         self.team_classifier = TeamClassifier(device=self.device)
         self.team_selector = InteractiveTeamSelector(headless_names=team_names)
 
+        self.ocr = None  # the jersey-number reader of PLAYER_TRACKING
+        if self.mode == ProcessingMode.PLAYER_TRACKING:
+            self.ocr = JerseyNumberReader(device=self.device)
         self.tracker = None
         self.use_fused_tracker = False
         if self.mode in _TRACKING_MODES:
@@ -125,9 +155,8 @@ class VideoProcessor:
             if teams:
                 print(f"TEAM_CLASSIFICATION; tracker: {tracker}")
             else:
-                print("PLAYER_TRACKING without jersey-number OCR (not ported "
-                      "yet, ROADMAP.md item 4): labels show tracker ids; "
-                      f"tracker: {tracker}")
+                print(f"PLAYER_TRACKING; tracker: {tracker}; jersey-number "
+                      f"OCR: {self.ocr.backend or 'none'}")
 
     @property
     def _fused_features(self) -> bool:
@@ -198,16 +227,12 @@ class VideoProcessor:
     def track_frames(self, frames: Iterable[np.ndarray]) -> Iterator[Tracked]:
         """Frames (H, W, 3) uint8 -> each frame's (boxes, scores, classes,
         tracker_ids) of the detections that acquired an emittable track, in
-        device batches of `config.resolved_frame_batch` (PLAYER_TRACKING)."""
+        device batches of `config.resolved_frame_batch` (PLAYER_TRACKING).
+        The OCR reader reads each frame's due players, without drawing."""
         if self.mode != ProcessingMode.PLAYER_TRACKING:
             raise ValueError("track_frames needs mode PLAYER_TRACKING")
-        for _, kw in self._steps(frames):
-            rows = kw.get("pretracked")
-            if rows is None:
-                d = kw["det"]
-                with self.timers.stage("track"):
-                    rows = self.tracker.update(d.boxes, d.scores, d.classes)
-            yield rows
+        for frame, kw in self._steps(frames):
+            yield self._tracked_result(frame, **kw)[:4]
 
     def classify_frames(self, frames: Iterable[np.ndarray]) -> Iterator[Dict]:
         """Frames (H, W, 3) uint8 -> each frame's `last_frame_result`
@@ -220,6 +245,34 @@ class VideoProcessor:
         for frame, kw in self._steps(frames):
             self._tracked_result(frame, **kw)
             yield self.last_frame_result
+
+    def _puck_steps(self, frames: Iterable[np.ndarray]
+                    ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """(frame, boxes (n, 4), scores (n,)) of each frame: the sliced
+        detector over batches of min(frame batch, 16) frames, or frame by
+        frame at frame batch 1."""
+        pipe = self.puck_pipeline
+        b = self.config.resolved_frame_batch(self.device)
+        if b == 1:
+            for frame in frames:
+                with self.timers.stage("detect"):
+                    boxes, scores = pipe.detect_frame(frame)
+                yield frame, boxes, scores
+            return
+        for batch, n in batched(iter(frames), min(b, PUCK_MAX_BATCH)):
+            with self.timers.stage("detect"):
+                boxes, scores, valid = pipe.detect_batch(batch)
+            for i in range(n):
+                yield batch[i], boxes[i][valid[i]], scores[i][valid[i]]
+
+    def puck_frames(self, frames: Iterable[np.ndarray]) -> Iterator[PuckResult]:
+        """Frames (H, W, 3) uint8 -> each frame's PuckResult, the puck
+        tracker run on the host in order (PUCK_DETECTION), without drawing."""
+        if self.mode != ProcessingMode.PUCK_DETECTION:
+            raise ValueError("puck_frames needs mode PUCK_DETECTION")
+        for _, boxes, scores in self._puck_steps(frames):
+            center, detection, _ = self.puck_pipeline.ingest(boxes, scores)
+            yield PuckResult(boxes, scores, center, detection)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -297,8 +350,14 @@ class VideoProcessor:
         gmask = classes == GOALKEEPER_CLASS_ID
 
         if self.mode == ProcessingMode.PLAYER_TRACKING:
-            labels = [("Goalie #" if g else "#") + str(tid)
-                      for g, tid in zip(gmask, tids)]
+            labels = []
+            for i, tid in enumerate(tids):
+                num = self.ocr.get_number(tid) if pmask[i] else None
+                tag = f"#{tid}" if num is None else f"#{tid} ({num})"
+                labels.append("Goalie " + tag if gmask[i] else tag)
+            if pmask.any():
+                with self.timers.stage("ocr"):
+                    self.ocr.observe(frame, boxes[pmask], tids[pmask])
             lookup = np.where(gmask, GOALIE_TEAM_ID, 0).astype(np.int32)
         else:  # TEAM_CLASSIFICATION, the reference's main path
             player_teams = np.array([], dtype=np.int64)
@@ -338,8 +397,11 @@ class VideoProcessor:
         """Draw one frame. PLAYER_DETECTION: `det`'s boxes (the frame is
         detected here without it) with Player and Goalie labels. The
         tracking modes: `_tracked_result`'s rows, smoothed per tracker id;
-        PLAYER_TRACKING labels '#id' or 'Goalie #id', TEAM_CLASSIFICATION
-        the team's name or 'Goalie', coloured by team."""
+        PLAYER_TRACKING labels '#id', '#id (number)' or 'Goalie #id',
+        TEAM_CLASSIFICATION the team's name or 'Goalie', coloured by team.
+        PUCK_DETECTION: the puck pipeline on the frame alone."""
+        if self.mode == ProcessingMode.PUCK_DETECTION:
+            return self.puck_pipeline.process_frame(frame)
         if self.mode == ProcessingMode.PLAYER_DETECTION:
             if det is None:
                 with self.timers.stage("detect"):
@@ -368,6 +430,12 @@ class VideoProcessor:
         if self.mode == ProcessingMode.TEAM_CLASSIFICATION:
             self.initialize_team_classifier(source_path)
         frames = frame_generator(source_path, limit=limit)
+        if self.mode == ProcessingMode.PUCK_DETECTION:
+            for frame, boxes, scores in self._puck_steps(frames):
+                with self.timers.stage("annotate"):
+                    out = self.puck_pipeline.annotate(frame, boxes, scores)
+                yield out
+            return
         if self.mode == ProcessingMode.PLAYER_DETECTION:
             b = self.config.resolved_frame_batch(self.device)
             for batch, n in batched(frames, b):

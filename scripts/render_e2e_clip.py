@@ -10,8 +10,10 @@ generator (hockey_tpu/train/scenes.py `render_scene_sequence`, generator
 a; numpy and OpenCV, no JAX) draws the frames, which go through an mp4v
 file and back as e2e_quality.py's pipeline reads them. The .npz holds the
 decoded frames (N, s, s, 3) uint8 BGR and the ground truth: per-frame
-counts `n` and the concatenated `boxes`, `classes`, `track_ids` and
-`team_ids`. Needs OpenCV; runs on the CPU. This is the reference's data
+counts `n` and the concatenated `boxes`, `classes`, `track_ids`,
+`team_ids` and `numbers` (each actor's jersey number, -1 for none).
+e2e_quality.py's number scoring (`--mode PLAYER_TRACKING`) wants
+`--imgsz 960 --span 0.28,0.42`. Needs OpenCV; runs on the CPU. This is the reference's data
 source, not part of the port: the port's harness only reads the file.
 Write it under a directory that .gitignore lists (proof/).
 """
@@ -65,7 +67,7 @@ def main() -> int:
     if len(decoded) != len(frames):
         raise RuntimeError(f"decoded {len(decoded)} of {len(frames)} frames")
     cat = {k: np.concatenate([np.asarray(lab[k]) for lab in labels])
-           for k in ("boxes", "classes", "track_ids", "team_ids")}
+           for k in ("boxes", "classes", "track_ids", "team_ids", "numbers")}
     np.savez_compressed(args.out, frames=np.stack(decoded),
                         n=np.asarray([len(lab["boxes"]) for lab in labels]),
                         seed=args.seed, imgsz=args.imgsz, span=np.asarray(span),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's detect step goes, on one GPU.
 
-    python3 scripts/torch_detect_profile.py [--track | --teams] [--out F]
+    python3 scripts/torch_detect_profile.py [--track | --teams | --puck] [--out F]
 
 Runs `Detector.detect_batch` (the shipped YOLOv8x player detector, bf16)
 on seeded synthetic 1080p frames (736x1280 network input; the frames of
@@ -50,6 +50,16 @@ and the branch alone (`team_features` on the last profiled batch's frames
 and boxes, 10 calls under the profiler): the device ms of its kernels per
 call, its kernels per call and those with the most device time.
 
+With `--puck` it profiles PUCK_DETECTION's step instead,
+`SlicedDetector.detect_frames` (the shipped YOLOv8s puck model, bf16, 8
+tiles of 640 per 1080p frame, so 64 tiles per batch of 8) on
+chip_smoke.py's frames with the drawn puck: the ranges upload, slice
+(the tiles cut on the device), letterbox, forward, decode,
+nms_candidates, nms_select_unmap and merge (the cross-tile merge), and
+the suppression kernel's device time at each of its two call sites per
+batch (its launches in time order alternate per-tile NMS, merge), with
+the busy share, copies and top kernels as above.
+
 Prints one JSON object as its last line (and writes it to `--out` when
 given). Needs CUDA.
 """
@@ -73,6 +83,7 @@ from chip_smoke import (  # noqa: E402
     FRAME_HW,
     KERNEL_NAME,
     launches_in,
+    puck_scene,
     replay_on_card,
     synthetic_frames,
 )
@@ -83,6 +94,7 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     tracker_inputs,
 )
 from hockey_tpu_torch.ops import assignment  # noqa: E402
+from hockey_tpu_torch.slicing.sahi import SlicedDetector  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import init_state  # noqa: E402
 
@@ -92,6 +104,8 @@ STAGES = ("upload", "letterbox", "forward", "decode", "nms_candidates",
           "nms_suppress", "nms_select_unmap")
 TRACK_STAGES = STAGES + ("tracker_scan", "pack")
 TEAM_STAGES = STAGES + ("team_features", "tracker_scan", "pack")
+PUCK_STAGES = ("upload", "slice", "letterbox", "forward", "decode",
+               "nms_candidates", "nms_suppress", "nms_select_unmap", "merge")
 ALONE_TURNS = 4
 
 
@@ -141,6 +155,8 @@ def main() -> int:
     ap.add_argument("--teams", action="store_true",
                     help="profile the fused detect + track step with the "
                          "team branch (TEAM_CLASSIFICATION)")
+    ap.add_argument("--puck", action="store_true",
+                    help="profile the sliced puck step (PUCK_DETECTION)")
     args = ap.parse_args()
     track = args.track or args.teams
     if not torch.cuda.is_available():
@@ -152,9 +168,18 @@ def main() -> int:
     print(card, flush=True)
 
     cfg = Config()
-    det = Detector(cfg.player_model_name, cfg, frame_hw=FRAME_HW, device="cuda",
-                   dtype=torch.bfloat16, with_team_features=args.teams)
-    stages = TEAM_STAGES if args.teams else TRACK_STAGES if track else STAGES
+    stages = (PUCK_STAGES if args.puck else TEAM_STAGES if args.teams
+              else TRACK_STAGES if track else STAGES)
+    if args.puck:
+        det = SlicedDetector(cfg, FRAME_HW, device="cuda", dtype=torch.bfloat16)
+        frames = puck_scene(seed=0, n=BATCH)
+
+        def step(b):
+            det.detect_frames(frames)  # ends in the one copy to the host
+    else:
+        det = Detector(cfg.player_model_name, cfg, frame_hw=FRAME_HW,
+                       device="cuda", dtype=torch.bfloat16,
+                       with_team_features=args.teams)
     if track:
         frames = synthetic_frames(seed=0, n=BATCH * (WARMUP + ITERS))
         batches = [frames[BATCH * i:BATCH * (i + 1)]
@@ -167,7 +192,7 @@ def main() -> int:
             state[0] = out[-1]
             outs.append(out)
             out[3].cpu()  # the one copy to the host per batch
-    else:
+    elif not args.puck:
         frames = synthetic_frames(seed=0, n=BATCH)
 
         def step(b):
@@ -203,11 +228,12 @@ def main() -> int:
                                    if KERNEL_NAME in k) / ITERS
     h2d = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and "Memcpy HtoD" in e.name]
+    core = det.detector.core if args.puck else det.core
     result = {
         "card": card,
         "device": torch.cuda.get_device_name(0),
         "batch": BATCH,
-        "input_hw": list(det.core.in_hw),
+        "input_hw": list(core.in_hw),
         "stage_device_ms_per_batch": {k: round(stage_ms.get(k, 0.0), 4)
                                       for k in stages},
         "device_ms_per_batch": round(busy_ms / ITERS, 4),
@@ -217,6 +243,20 @@ def main() -> int:
         "h2d_copies_per_batch": len(h2d) / ITERS,
         "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in kernels[:15]],
     }
+    if args.puck:
+        # the kernel's launches in time order: per-tile NMS, merge, ...
+        launches = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                          for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and KERNEL_NAME in e.name)
+        result.update({
+            "tiles_per_batch": BATCH * len(det.grid),
+            "kernel_launches_per_batch": len(launches) / ITERS,
+            "nms_suppress_tile_site_ms_per_batch": round(
+                sum(d for _, d in launches[0::2]) / 1e3 / ITERS, 6),
+            "nms_suppress_merge_site_ms_per_batch": round(
+                sum(d for _, d in launches[1::2]) / 1e3 / ITERS, 6),
+        })
     if args.teams:
         result.update({
             "team_features_host_ms_per_batch": round(host_ms["team_features"], 4),

@@ -130,8 +130,11 @@ def test_entry_points_refuse_what_the_slice_lacks():
             Detector(PLAYER)
         with pytest.raises(RuntimeError, match="CUDA"):
             VideoProcessor()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VideoProcessor(mode=ProcessingMode.PUCK_DETECTION, device="cpu")
+    # PUCK_DETECTION is ported: it builds the sliced YOLOv8s on the CPU
+    # (8 tiles of 640 for 1080p) and no player detector
+    vp = VideoProcessor(mode=ProcessingMode.PUCK_DETECTION, device="cpu")
+    assert vp.player_detector is None
+    assert len(vp.puck_pipeline.sliced.grid) == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Detector("hockey-detection", device="cpu")
     # TEAM_CLASSIFICATION and the fused team features are ported now

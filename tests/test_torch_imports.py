@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: hockey_tpu_torch imports neither JAX nor
 the JAX package, builds no kernel through torch.utils.cpp_extension, and
 everything chip_smoke.py imports, the tracker, the PLAYER_TRACKING
-modules and the team modules of TEAM_CLASSIFICATION among it, also loads
-without cv2, msgpack or sklearn (the GPU machine has none of them)."""
+modules with the jersey-number OCR, the team modules of
+TEAM_CLASSIFICATION and the sliced puck detector among it, also loads
+without cv2, msgpack or sklearn (the GPU machine has none of them); so
+does scripts/torch_e2e_puck.py."""
 
 import os
 import re
@@ -47,7 +49,9 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.ops.crop_resize", "hockey_tpu_torch.teams.base",
     "hockey_tpu_torch.teams.features", "hockey_tpu_torch.teams.kmeans",
     "hockey_tpu_torch.teams.segmentation", "hockey_tpu_torch.teams.simple",
-    "hockey_tpu_torch.teams.facade", "hockey_tpu_torch.ui.team_selector")
+    "hockey_tpu_torch.teams.facade", "hockey_tpu_torch.ui.team_selector",
+    "hockey_tpu_torch.ocr.digits", "hockey_tpu_torch.ocr.jersey",
+    "hockey_tpu_torch.slicing.sahi")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
@@ -61,11 +65,19 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
 assert not leaked, leaked
 """
 
+_IMPORT_PUCK_HARNESS = """
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "torch_e2e_puck", sys.argv[2] + "/scripts/torch_e2e_puck.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
+"""
+
+_BLOCKED = ("jax", "flax", "optax", "hockey_tpu", "cv2", "msgpack", "sklearn")
 CASES = {
-    "package_without_jax": (("jax", "flax", "optax", "hockey_tpu", "cv2",
-                             "msgpack", "sklearn"), _IMPORT_PACKAGE),
-    "chip_smoke_closure": (("jax", "flax", "optax", "hockey_tpu", "cv2",
-                            "msgpack", "sklearn"), _IMPORT_SMOKE),
+    "package_without_jax": (_BLOCKED, _IMPORT_PACKAGE),
+    "chip_smoke_closure": (_BLOCKED, _IMPORT_SMOKE),
+    "puck_harness": (_BLOCKED, _IMPORT_PUCK_HARNESS),
 }
 
 
@@ -90,6 +102,7 @@ def _sources():
             if f.endswith((".py", ".cu")):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "scripts", "torch_e2e_puck.py")
 
 
 def test_sources_name_no_forbidden_import():

@@ -76,7 +76,28 @@ Phases, each announced on its own line with the elapsed seconds:
    tracker's centre must lie within 16 px of the drawn puck on at least
    3/4 of the frames after its 2-frame acquisition. It prints frames/s,
    ms per batch and these numbers as one JSON line;
-8. the kernel table as one JSON line, then the result line.
+8. rink + 2D map: a VideoProcessor in TEAM_CLASSIFICATION with
+   `show_2d_map=True` builds the dual step (models/dual.py: YOLOv8x bf16
+   at 736x1280 with the team branch, then the shipped YOLOv8s-pose bf16 on
+   the 512 square, 56 keypoints) and, having no fused tracker, the host
+   ByteTrack; `fit_teams`, then `classify_frames` over 3 batches of 8
+   frames of a rink drawn in numpy through a known homography
+   (`rink_homography`: boards, red, blue and goal lines, faceoff circles
+   and spots) under the same players. The kernel must launch exactly once
+   per batch, and on the last batch keep the plain suppression's set and
+   give the run's detections; the card's keypoints on 2 frames are held
+   against the same rink branch in f32 on the CPU (the nearest of the
+   CPU's near-tied best anchors; tolerances at KPT_MAX_PX and below), and
+   fresh calibrators fed either side's keypoints must place the frame's
+   players within H_MEAN_FT / H_MAX_FT of each other; the CPU must read
+   the scene (SCENE_KPTS keypoints, a homography within SCENE_H_FT of the
+   known one); `RinkKeypointDetector.detect_keypoints_batch` runs once on
+   the same frames, its one NMS launch held to the plain version. It
+   prints frames/s, the host ms per frame of the stages (keypoints,
+   rink2d among them), the rink ranges' device ms and launches per batch
+   (torch.profiler), and the kernel's device, call, plain and bound times
+   at both call sites, as one JSON line;
+9. the kernel table as one JSON line, then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
@@ -98,12 +119,30 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
+from hockey_tpu_torch.homography.ransac import dlt_homography, project  # noqa: E402
+from hockey_tpu_torch.homography.calibrator import CalibratorState  # noqa: E402
+from hockey_tpu_torch.homography.keypoints import (  # noqa: E402
+    RinkKeypointDetector,
+    keypoints_from_array,
+)
+from hockey_tpu_torch.homography.stabilizer import homography_distance  # noqa: E402
+from hockey_tpu_torch.models.checkpoint import load_params, shipped_weights_path  # noqa: E402
 from hockey_tpu_torch.models.detector import (  # noqa: E402
     Detector,
     HostDetections,
+    best_keypoints,
     team_features,
     tracker_inputs,
 )
+from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
+from hockey_tpu_torch.models.layers import fuse_for_inference  # noqa: E402
+from hockey_tpu_torch.models.yolov8 import (  # noqa: E402
+    build_model,
+    decode_boxes,
+    decode_keypoints,
+    forward_raw,
+)
+from hockey_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
 from hockey_tpu_torch.ocr.digits import DigitNet, load_default_params  # noqa: E402
 from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
 from hockey_tpu_torch.ops.nms import nms_select, suppression_matrix  # noqa: E402
@@ -114,7 +153,10 @@ from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
 )
 from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
+from hockey_tpu_torch.rinkmap.dimensions import NHL  # noqa: E402
+from hockey_tpu_torch.rinkmap.renderer import bottom_center_anchors  # noqa: E402
 from hockey_tpu_torch.slicing.sahi import MERGE_MAX_DET, SlicedDetector  # noqa: E402
+from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
     init_state,
@@ -131,6 +173,22 @@ N_TEAMS = 2
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_NAME = "nms_suppress_kernel"  # the CUDA kernel's name in a trace
+# phase 8's tolerances, bf16 on the card against f32 on the CPU, in 1080p
+# frame px (the rink model sees the frame at 512 / 1920 of its size, so
+# 24 px is 6.4 px at its input): keypoints confident (>= 0.3) on both
+# sides within KPT_MAX_PX, their median within KPT_MEDIAN_PX, confidences
+# within KPT_CONF; the calibrator's homographies from either side's
+# keypoints project the frame's players within H_MEAN_FT on average and
+# H_MAX_FT at most. The CPU's reading of the scene: >= SCENE_KPTS
+# keypoints at >= 0.3 and its homography within SCENE_H_FT (mean
+# displacement over the frame's probe grid) of the known one: the shipped
+# pose model, trained on square frames, reads 16:9 1080p frames coarsely
+KPT_MAX_PX, KPT_MEDIAN_PX, KPT_CONF = 24.0, 6.0, 0.05
+H_MEAN_FT, H_MAX_FT = 1.5, 3.0
+SCENE_KPTS, SCENE_H_FT = 8, 25.0
+# the CPU anchors a card keypoint set may stand for: the 5 best, within
+# this score of the best (bf16 can swap near-tied anchors)
+NEAR_TIE = 0.01
 
 
 def phase(name: str) -> None:
@@ -271,16 +329,19 @@ def synthetic_players(seed: int, n: int, players: int = 10):
     return centre, hpx
 
 
-def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
-    """(n, 1080, 1920, 3) uint8 BGR: white rink, lines, skating players."""
+def synthetic_frames(seed: int, n: int, players: int = 10,
+                     base: np.ndarray = None) -> np.ndarray:
+    """(n, 1080, 1920, 3) uint8 BGR: skating players over `base`, by
+    default a white rink with vertical lines and a dark band on top."""
     rng = np.random.default_rng(seed)
     h, w = FRAME_HW
-    base = np.full((h, w, 3), 228, np.uint8)
-    base[..., 0] = 236
-    base[:, w // 2 - 6:w // 2 + 6] = (40, 40, 200)
-    for x in (w // 3, 2 * w // 3):
-        base[:, x - 8:x + 8] = (200, 90, 30)
-    base[:int(0.18 * h)] = (60, 70, 80)
+    if base is None:
+        base = np.full((h, w, 3), 228, np.uint8)
+        base[..., 0] = 236
+        base[:, w // 2 - 6:w // 2 + 6] = (40, 40, 200)
+        for x in (w // 3, 2 * w // 3):
+            base[:, x - 8:x + 8] = (200, 90, 30)
+        base[:int(0.18 * h)] = (60, 70, 80)
     teams = [((200, 160, 40), (40, 40, 40)), ((30, 30, 200), (230, 230, 230))]
     foot, vel, size = _skaters(rng, players)
     out = np.empty((n, h, w, 3), np.uint8)
@@ -291,6 +352,71 @@ def synthetic_frames(seed: int, n: int, players: int = 10) -> np.ndarray:
             _player(f, fx, fy, size[j] * (0.6 + 0.4 * fy / h), *teams[j % 2])
         out[t] = f
     return out
+
+
+# image px of the rink points (10, 0), (190, 0), (10, 85) and (190, 85) ft
+# in `rink_scene`: a camera above the near boards that sees 180 ft of the
+# 200-ft sheet, the far boards high and narrower, the near ones below the
+# frame (the JAX scene generator's camera family at span 0.9)
+RINK_CORNERS_PX = ((230.0, 130.0), (1690.0, 130.0), (-192.0, 1134.0),
+                   (2112.0, 1134.0))
+
+
+def rink_homography() -> np.ndarray:
+    """The known rink (ft) -> image (px) homography of `rink_scene`."""
+    src = np.array([[10.0, 0.0], [190.0, 0.0], [10.0, 85.0], [190.0, 85.0]])
+    return dlt_homography(src, np.array(RINK_CORNERS_PX))
+
+
+def rink_base() -> np.ndarray:
+    """(1080, 1920, 3) uint8 BGR: an NHL sheet seen through
+    `rink_homography`, marked in numpy by the rink point under each pixel:
+    ice, the boards' kickplate and pale boards (a rounded rectangle, 28-ft
+    corners), the crowd beyond, the red centre line and blue lines (1 ft
+    wide), the goal lines (4 in), the centre and end-zone faceoff circles
+    (15 ft, 3-in rings) and the faceoff spots (1-ft radius)."""
+    d = NHL
+    h, w = FRAME_HW
+    v, u = np.mgrid[0:h, 0:w]
+    pts = project(np.linalg.inv(rink_homography()),
+                  np.stack([u.ravel() + 0.5, v.ravel() + 0.5], 1))
+    x, y = pts[:, 0].reshape(h, w), pts[:, 1].reshape(h, w)
+    r = d.corner_radius
+    out = np.hypot(np.maximum(np.abs(x - d.center_x) - (d.center_x - r), 0),
+                   np.maximum(np.abs(y - d.center_y) - (d.center_y - r), 0)) - r
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = (236, 228, 228)
+    img[out > 0] = (180, 60, 40)                      # kickplate
+    img[out > 0.5] = (230, 228, 224)                  # boards
+    img[out > 3.5] = (60, 70, 80)                     # crowd
+    red, blue = (60, 50, 190), (170, 90, 30)
+    ice = out <= 0
+    marks = [(np.abs(x - d.center_x) < 0.5, red)]
+    for bx in (d.blue_line_from_end, d.length - d.blue_line_from_end):
+        marks.append((np.abs(x - bx) < 0.5, blue))
+    for gx in (d.goal_line_from_end, d.length - d.goal_line_from_end):
+        marks.append((np.abs(x - gx) < 1 / 6, red))
+    spot_x = (d.goal_line_from_end + d.endzone_spot_from_goal_line,
+              d.length - d.goal_line_from_end - d.endzone_spot_from_goal_line)
+    rows = (d.center_y - d.spot_offset_from_center_y,
+            d.center_y + d.spot_offset_from_center_y)
+    circles = [(d.center_x, d.center_y)] + [(cx, cy) for cx in spot_x
+                                            for cy in rows]
+    neutral = (d.blue_line_from_end + d.neutral_spot_from_blue,
+               d.length - d.blue_line_from_end - d.neutral_spot_from_blue)
+    for cx, cy in circles:
+        marks.append((np.abs(np.hypot(x - cx, y - cy)
+                             - d.faceoff_circle_radius) < 0.125, red))
+    for cx, cy in circles[1:] + [(nx, ny) for nx in neutral for ny in rows]:
+        marks.append((np.hypot(x - cx, y - cy) < 1.0, red))
+    for mask, color in marks:
+        img[mask & ice] = color
+    return img
+
+
+def rink_scene(seed: int, n: int) -> np.ndarray:
+    """`synthetic_frames` with its players over `rink_base`."""
+    return synthetic_frames(seed, n, base=rink_base())
 
 
 def puck_path(n: int) -> np.ndarray:
@@ -773,6 +899,260 @@ def team_phase(config, frames, max_err, track_fps):
     return launches_c, max_err
 
 
+def near_best_keypoints(step, model, frames, top: int = 5):
+    """The rink branch of `step` (a DualStep) on the CPU: each frame's
+    `top` best anchors' keypoints (B, top, K, 3) in frame px, and their
+    scores (B, top)."""
+    hw = (step.rink_imgsz, step.rink_imgsz)
+    x = letterbox_batch(frames, step.rink_imgsz, torch.float32)
+    raw = forward_raw(model, x)
+    _, scores = decode_boxes(raw, step.rink_cfg, hw)
+    kpts = decode_keypoints(raw, step.rink_cfg, hw)
+    best = scores.max(dim=-1).values.topk(top, dim=1)
+    # best_keypoints un-maps the anchor that a one-hot score marks
+    out = [best_keypoints(kpts, torch.nn.functional.one_hot(
+        best.indices[:, j], kpts.shape[1]).float(), step.rink_geometry)
+        for j in range(top)]
+    return torch.stack(out, 1).numpy(), best.values.numpy()
+
+
+def fresh_homography(frame, kpts):
+    """A fresh calibrator's homography from one frame's (K, 3) keypoints
+    (those >= keypoint_confidence_threshold), and its tier."""
+    cal = CalibratorState(frame_hw=FRAME_HW)
+    h = cal.process_frame(frame, keypoints_from_array(
+        kpts, Config().keypoint_confidence_threshold))
+    return h, cal.last_tier
+
+
+def rink_phase(config, max_err):
+    """Phase 8; returns (kernel launches over classify_frames and the rink
+    detector's call, max_err, the rink line's numbers)."""
+    frames = rink_scene(seed=0, n=BATCH * N_BATCHES)
+    h_true = np.linalg.inv(rink_homography())  # image -> rink
+    t = time.perf_counter()
+    vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                        mode=ProcessingMode.TEAM_CLASSIFICATION,
+                        show_2d_map=True, team_names=("TEAM_A", "TEAM_B"))
+    dual = vp.player_detector
+    print(f"dual step ready in {time.perf_counter() - t:.2f} s: player "
+          f"{dual.core.in_hw} {dual.dtype}, rink {dual.step.rink_imgsz} square, "
+          f"tracker {type(vp.tracker).__name__}", flush=True)
+    if not (vp.use_dual and isinstance(dual, DualDetector)
+            and dual.with_team_features and not vp.use_fused_tracker
+            and isinstance(vp.tracker, ByteTrack)):
+        raise AssertionError("TEAM_CLASSIFICATION with the 2D map did not take "
+                             "the dual step and the host ByteTrack")
+    crops = vp.fit_teams(iter(frames))
+
+    outs = []  # (the dual step's host output, keypoints) of each batch
+    detect_batch = dual.detect_batch
+
+    def recording(batch):
+        out = detect_batch(batch)
+        outs.append((out, dual.last_keypoints))
+        return out
+
+    dual.detect_batch = recording
+    vp.timers.reset()
+    suppress.launches = 0
+    results, hs, marks = [], [], []
+    t = time.perf_counter()
+    for r in vp.classify_frames(iter(frames)):
+        results.append(r)
+        h = vp.calibrator.stabilizer.current
+        hs.append(None if h is None else h.copy())
+        if len(results) % BATCH == 0:
+            marks.append(time.perf_counter())
+    launches_d = suppress.launches
+    dual.detect_batch = detect_batch
+    fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+    batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
+    n = len(results)
+    stage_ms = {k: 1e3 * vp.timers.totals[k] / max(n, 1)
+                for k in ("detect", "track", "teams", "keypoints", "rink2d")}
+    calibrated = sum(h is not None for h in hs)
+    print(f"fit_teams: {crops} crops; ms per batch of {BATCH}: "
+          f"{[round(x, 2) for x in batch_ms]}", flush=True)
+    print(f"frames/s after the first batch: {fps:.2f}", flush=True)
+    print(f"nms_suppress launches over classify_frames: {launches_d}", flush=True)
+    print(f"host ms per frame by stage: "
+          f"{ {k: round(v, 3) for k, v in stage_ms.items()} }", flush=True)
+    print(f"keypoints >= 0.3 per frame: "
+          f"{[int((o[1][..., 2] >= 0.3).sum()) for o in outs]} per batch; "
+          f"calibrated frames {calibrated} of {n}; tier "
+          f"{vp.calibrator.stabilizer.current_tier}", flush=True)
+    if n != BATCH * N_BATCHES or len(outs) != N_BATCHES:
+        raise AssertionError(f"{n} frames out, {BATCH * N_BATCHES} in")
+    if launches_d != N_BATCHES:
+        raise AssertionError(f"kernel launched {launches_d} times, not "
+                             f"{N_BATCHES} (once per batch at the player branch)")
+    for (out, kp) in outs:
+        if kp.shape != (BATCH, 56, 3) or not np.isfinite(kp).all():
+            raise AssertionError("rink keypoints not finite (B, 56, 3)")
+        if out[1].shape != (BATCH, dual.max_det, 4):
+            raise AssertionError("no team features from the dual step")
+    if not calibrated:
+        raise AssertionError("the calibrator never produced a homography")
+    if any(not np.isfinite(r["boxes"]).all() for r in results):
+        raise AssertionError("non-finite tracked boxes")
+
+    # the kernel at the player branch on the last batch: the plain
+    # suppression's kept set, and the halves give the run's detections
+    last = torch.as_tensor(frames[-BATCH:]).to("cuda")
+    core = dual.core
+    with torch.inference_mode():
+        cand = core.candidates(dual.player_model, last)
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+        again = core.finish(cand, keep_k)
+    torch.cuda.synchronize()
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
+    if not torch.equal(keep_k, keep_r):
+        raise AssertionError("dual-path kept sets differ from the plain version")
+    run_det = outs[-1][0][0]
+    if not all(torch.equal(getattr(again, f).cpu(), getattr(run_det, f))
+               for f in ("boxes", "scores", "classes", "valid")):
+        raise AssertionError("the dual core's halves differ from the run's "
+                             "last batch")
+    print(f"dual-path NMS, last batch: kept {keep_k.sum(1).tolist()} of "
+          f"{cand.keep0.sum(1).tolist()}; kernel kept set == plain kept set, "
+          f"halves == the run: True", flush=True)
+    sites = {"dual": time_kernel(
+        f"dual player branch NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}",
+        cand.matrix, cand.keep0, cand.thr)}
+
+    # the card's keypoints (bf16) on the last batch's first 2 frames
+    # against the same rink branch in f32 on the CPU; the card's set is
+    # held against the nearest of the CPU's near-tied best anchors
+    t = time.perf_counter()
+    rink_cpu = fuse_for_inference(build_model(dual.rink_cfg, load_params(
+        shipped_weights_path(config.hockey_model_name))), torch.float32)
+    two = frames[-BATCH:][:2]
+    with torch.inference_mode():
+        cpu_k, cpu_s = near_best_keypoints(dual.step, rink_cpu,
+                                           torch.from_numpy(two))
+    cpu_s_ = time.perf_counter() - t
+    card_k = outs[-1][1][:2]
+    kpt = {"px_max": 0.0, "px_median": [], "conf_max": 0.0, "cpu_rank": [],
+           "common": [], "h_mean_ft": [], "h_max_ft": [], "scene_kpts": [],
+           "scene_h_ft": [], "scene_tier": []}
+    for i in range(2):
+        cand_j = [j for j in range(cpu_k.shape[1])
+                  if cpu_s[i, j] >= cpu_s[i, 0] - NEAR_TIE]
+
+        def dist(j):
+            both = (card_k[i, :, 2] >= 0.3) & (cpu_k[i, j, :, 2] >= 0.3)
+            return both, np.linalg.norm(card_k[i, both, :2]
+                                        - cpu_k[i, j, both, :2], axis=1)
+        j = min(cand_j, key=lambda j: np.median(dist(j)[1]))
+        both, d = dist(j)
+        ref = cpu_k[i, j]
+        kpt["cpu_rank"].append(j)
+        kpt["common"].append(int(both.sum()))
+        kpt["px_max"] = max(kpt["px_max"], float(d.max()))
+        kpt["px_median"].append(float(np.median(d)))
+        kpt["conf_max"] = max(kpt["conf_max"], float(np.abs(
+            card_k[i, :, 2] - ref[:, 2]).max()))
+        h_card, _ = fresh_homography(two[i], card_k[i])
+        h_cpu, tier = fresh_homography(two[i], ref)
+        anchors = bottom_center_anchors(results[-BATCH + i]["boxes"])
+        if h_card is None or h_cpu is None or not len(anchors):
+            raise AssertionError(f"frame {i}: no homography or no players")
+        hd = np.linalg.norm(project(h_card, anchors) - project(h_cpu, anchors),
+                            axis=1)
+        kpt["h_mean_ft"].append(float(hd.mean()))
+        kpt["h_max_ft"].append(float(hd.max()))
+        # the CPU's reading of the scene (its argmax anchor)
+        h0, tier0 = fresh_homography(two[i], cpu_k[i, 0])
+        kpt["scene_kpts"].append(int((cpu_k[i, 0, :, 2] >= 0.3).sum()))
+        kpt["scene_h_ft"].append(None if h0 is None else
+                                 homography_distance(h0, h_true, FRAME_HW))
+        kpt["scene_tier"].append(tier0)
+    print(f"rink keypoints, card bf16 vs CPU f32 ({cpu_s_:.1f} s), 2 frames: "
+          f"CPU anchor rank {kpt['cpu_rank']} (argmax 0), {kpt['common']} "
+          f"keypoints >= 0.3 on both sides, max {kpt['px_max']:.3f} px "
+          f"(tolerance {KPT_MAX_PX}), median "
+          f"{[round(x, 3) for x in kpt['px_median']]} px (tolerance "
+          f"{KPT_MEDIAN_PX}), confidence max |diff| {kpt['conf_max']:.4f} "
+          f"(tolerance {KPT_CONF}); homographies' players mean "
+          f"{[round(x, 3) for x in kpt['h_mean_ft']]} ft (tolerance "
+          f"{H_MEAN_FT}), max {[round(x, 3) for x in kpt['h_max_ft']]} ft "
+          f"(tolerance {H_MAX_FT})", flush=True)
+    print(f"the CPU's reading of the scene: keypoints >= 0.3 "
+          f"{kpt['scene_kpts']} (at least {SCENE_KPTS}), homography "
+          f"{[None if x is None else round(x, 2) for x in kpt['scene_h_ft']]} "
+          f"ft from the known one (at most {SCENE_H_FT}), tier "
+          f"{kpt['scene_tier']}", flush=True)
+    if (kpt["px_max"] > KPT_MAX_PX or max(kpt["px_median"]) > KPT_MEDIAN_PX
+            or kpt["conf_max"] > KPT_CONF or min(kpt["common"]) < SCENE_KPTS):
+        raise AssertionError("card keypoints disagree with the f32 CPU run")
+    if max(kpt["h_mean_ft"]) > H_MEAN_FT or max(kpt["h_max_ft"]) > H_MAX_FT:
+        raise AssertionError("card and CPU keypoints calibrate apart")
+    if (min(kpt["scene_kpts"]) < SCENE_KPTS or None in kpt["scene_h_ft"]
+            or max(kpt["scene_h_ft"]) > SCENE_H_FT):
+        raise AssertionError("the port does not read the rink scene")
+
+    # the rink model alone (an injected player detector's route): one
+    # call on the same frames, its NMS kernel against the plain version
+    rd = RinkKeypointDetector(config.hockey_model_name, config,
+                              frame_hw=FRAME_HW, device="cuda")
+    suppress.launches = 0
+    rd_k = rd.detect_keypoints_batch(frames[-BATCH:])
+    launches_r = suppress.launches
+    core_r = rd.detector.core
+    with torch.inference_mode():
+        cand_r = core_r.candidates(rd.detector.model, last)
+        rk = suppress(cand_r.matrix, cand_r.keep0, cand_r.thr)
+        rr = suppress_reference(cand_r.matrix, cand_r.keep0, cand_r.thr)
+    torch.cuda.synchronize()
+    max_err = max(max_err, float((rk.int() - rr.int()).abs().max()))
+    print(f"RinkKeypointDetector ({core_r.in_hw} rect): {launches_r} kernel "
+          f"launch, kept {rk.sum(1).tolist()} of {cand_r.keep0.sum(1).tolist()}; "
+          f"kernel kept set == plain: {torch.equal(rk, rr)}; keypoints "
+          f"{rd_k.shape}, >= 0.3 per frame "
+          f"{(rd_k[..., 2] >= 0.3).sum(1).tolist()}", flush=True)
+    if launches_r != 1 or not torch.equal(rk, rr):
+        raise AssertionError("the rink detector's NMS launch failed its check")
+    if rd_k.shape != (BATCH, 56, 3) or not np.isfinite(rd_k).all():
+        raise AssertionError("rink detector keypoints not finite (B, 56, 3)")
+    sites["rink_detector"] = time_kernel(
+        f"rink detector NMS B={cand_r.keep0.shape[0]} K={cand_r.keep0.shape[1]}",
+        cand_r.matrix, cand_r.keep0, cand_r.thr)
+
+    # the rink branch's ranges on the card: one profiled dual step
+    dual.run(frames[-BATCH:])[3].cpu()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dual.run(frames[-BATCH:])[3].cpu()
+        torch.cuda.synchronize()
+    ranges = ("rink_letterbox", "rink_forward", "rink_decode", "forward",
+              "team_features", "pack")
+    range_ms = {r: sum(e.device_time_total for e in prof.key_averages()
+                       if e.key == r and e.device_type == DeviceType.CPU) / 1e3
+                for r in ranges}
+    range_launches = {r: launches_in(prof, r) for r in ranges}
+    print(f"device ms per batch of {BATCH} by range: "
+          f"{ {r: round(v, 4) for r, v in range_ms.items()} }; launches "
+          f"{range_launches}", flush=True)
+    rink = {
+        "frames_per_s_after_first_batch": round(fps, 2),
+        "ms_per_batch": [round(x, 2) for x in batch_ms],
+        "kernel_launches_per_batch": launches_d / N_BATCHES,
+        "host_ms_per_frame": {k: round(v, 3) for k, v in stage_ms.items()},
+        "range_device_ms_per_batch": {r: round(v, 4) for r, v in range_ms.items()},
+        "range_launches_per_batch": range_launches,
+        "calibrated_frames": calibrated,
+        "final_h_ft_from_known": round(homography_distance(
+            hs[-1], h_true, FRAME_HW), 3) if hs[-1] is not None else None,
+        "keypoints_card_vs_cpu": kpt,
+        "kernel_at_dual_site": sites["dual"],
+        "kernel_at_rink_detector_site": sites["rink_detector"],
+    }
+    print(json.dumps({"rink": rink}), flush=True)
+    return launches_d + launches_r, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1031,14 +1411,18 @@ def main() -> int:
           "VideoProcessor.puck_frames")
     launches_p, max_err = puck_phase(config, max_err)
 
-    phase("8 results")
+    phase("8 rink + 2D map: the dual step (YOLOv8x 736x1280 + YOLOv8s-pose "
+          "512), host ByteTrack and calibrator, VideoProcessor.classify_frames")
+    launches_r, max_err = rink_phase(config, max_err)
+
+    phase("9 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches + launches_t + launches_c + launches_p,
+        "launches": launches + launches_t + launches_c + launches_p + launches_r,
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

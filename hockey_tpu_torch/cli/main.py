@@ -1,11 +1,13 @@
 """CLI entry point of the port (the flags of hockey_tpu/cli/main.py that
-the four modes use; TEAM_CLASSIFICATION is the default, as there).
+the four modes, the rink keypoints and the 2D map use; TEAM_CLASSIFICATION
+is the default, as there).
 
     python -m hockey_tpu_torch.cli.main --source_path in.mp4 \
         --target_path out.mp4 --headless [--team-names "HOME,AWAY"] \
         [--mode TEAM_CLASSIFICATION|PLAYER_TRACKING|PLAYER_DETECTION|PUCK_DETECTION] \
+        [--rink-keypoints] [--show-2d-map] [--calibration PROFILE.json] \
         [--device cuda|cpu] [--conf X] [--annotator box|ellipse|styled] \
-        [--checkpoint F] [--puck-checkpoint F] \
+        [--checkpoint F] [--rink-checkpoint F] [--puck-checkpoint F] \
         [--imgsz N] [--frame-batch N] [--limit-frames N]
 """
 
@@ -27,15 +29,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to save the output video.")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'.")
+    p.add_argument("--rink-keypoints", action="store_true",
+                   help="Enable rink keypoint detection.")
     p.add_argument("--mode", type=str, default="TEAM_CLASSIFICATION",
                    choices=[m.value for m in ProcessingMode],
                    help="Processing mode (default TEAM_CLASSIFICATION).")
+    p.add_argument("--show-2d-map", action="store_true",
+                   help="Overlay the 2D overhead rink map.")
+    p.add_argument("--calibration", type=str, default=None,
+                   help="Calibration profile JSON to load (2D map).")
     p.add_argument("--headless", action="store_true",
                    help="No OpenCV windows; use default/provided team names.")
     p.add_argument("--team-names", type=str, default=None,
                    help="Comma-separated 'HOME,AWAY' names (headless init).")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Player-model msgpack checkpoint.")
+    p.add_argument("--rink-checkpoint", type=str, default=None,
+                   help="Rink pose-model msgpack checkpoint.")
     p.add_argument("--puck-checkpoint", type=str, default=None,
                    help="Puck-model msgpack checkpoint (PUCK_DETECTION).")
     p.add_argument("--frame-batch", type=int, default=None,
@@ -86,6 +96,10 @@ def main(argv=None) -> int:
         checkpoint=args.checkpoint,
         puck_checkpoint=args.puck_checkpoint,
         team_names=team_names,
+        enable_rink_keypoints=args.rink_keypoints,
+        show_2d_map=args.show_2d_map,
+        rink_checkpoint=args.rink_checkpoint,
+        calibration_profile=args.calibration,
     )
     n = process_video_with_display(processor, args.source_path,
                                    args.target_path,

@@ -1,9 +1,10 @@
 """The detection step: letterbox -> YOLOv8 -> DFL decode -> NMS -> box
-un-mapping over a frame batch, optionally the team-feature branch, and
-the fused detect + track step. Port of hockey_tpu/models/detector.py
-(`HostDetections`, `_unmap_boxes`, `_build_detect_core` as `DetectCore`,
-its team branch as `team_features`, `build_detect_track_fn` as
-`DetectTrackStep`, `BYTE_FLOOR`, `Detector`).
+un-mapping over a frame batch, optionally the team-feature branch or a
+pose model's keypoints, and the fused detect + track step. Port of
+hockey_tpu/models/detector.py (`HostDetections`, `_unmap_boxes`,
+`_build_detect_core` as `DetectCore`, its team branch as
+`team_features`, `build_detect_track_fn` as `DetectTrackStep`,
+`BYTE_FLOOR`, `Detector`).
 
 The frames cross to the device once per batch and the fixed-size padded
 detections (or, fused, the packed detections, track ids and team
@@ -23,7 +24,8 @@ from torch.profiler import record_function
 from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
 from ..core.device import resolve_device
 from ..ops.crop_resize import crop_and_resize_mm
-from ..ops.letterbox import (letterbox_rect_batch, rect_letterbox_params,
+from ..ops.letterbox import (letterbox_batch, letterbox_params,
+                             letterbox_rect_batch, rect_letterbox_params,
                              rect_shape, resize_batch)
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
@@ -33,7 +35,8 @@ from ..tracking.device_tracker import (TrackState, step_kwargs,
                                        tracker_scan)
 from .checkpoint import load_params, shipped_weights_path
 from .layers import fuse_for_inference
-from .yolov8 import MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes, forward_raw
+from .yolov8 import (MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes,
+                     decode_keypoints, forward_raw)
 
 # ByteTrack's low-score floor (the tracker's stage-2 band is [BYTE_FLOOR,
 # activation)); the fused tracking path floors its NMS here
@@ -63,10 +66,22 @@ class HostDetections(NamedTuple):
         )
 
 
-def _unmap_boxes(boxes: torch.Tensor, h: int, w: int, imgsz: int) -> torch.Tensor:
-    """Minimal-rectangle letterboxed xyxy -> original-frame xyxy, clipped
-    to the frame."""
-    r, _, _, pad_top, pad_left, _, _ = rect_letterbox_params(h, w, imgsz)
+def letterbox_geometry(h: int, w: int, imgsz: int, rect: bool
+                       ) -> Tuple[float, int, int]:
+    """(ratio, pad_top, pad_left) of the minimal-rectangle (`rect`) or the
+    square letterbox of an (h, w) frame at `imgsz`."""
+    if rect:
+        r, _, _, pad_top, pad_left, _, _ = rect_letterbox_params(h, w, imgsz)
+    else:
+        r, _, _, pad_top, pad_left = letterbox_params(h, w, imgsz)
+    return r, pad_top, pad_left
+
+
+def _unmap_boxes(boxes: torch.Tensor, h: int, w: int, imgsz: int,
+                 rect: bool = True) -> torch.Tensor:
+    """Letterboxed xyxy -> original-frame xyxy, clipped to the frame
+    (hockey_tpu detector.py:63-72)."""
+    r, pad_top, pad_left = letterbox_geometry(h, w, imgsz, rect)
     x = torch.clamp((boxes[..., 0::2] - pad_left) / r, 0.0, w)
     y = torch.clamp((boxes[..., 1::2] - pad_top) / r, 0.0, h)
     return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
@@ -91,13 +106,29 @@ def team_features(frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     return segmentation_features(crops, color_prior_masks(crops)).reshape(b, d, 4)
 
 
+def best_keypoints(kpts: torch.Tensor, max_scores: torch.Tensor,
+                   geometry: Tuple[float, int, int]) -> torch.Tensor:
+    """A pose model's keypoints of each frame's best anchor: kpts
+    (B, A, K, 3) in letterboxed px and max_scores (B, A) -> (B, K, 3) in
+    frame px, un-mapped by `geometry` (ratio, pad_top, pad_left) and not
+    clipped. There is one rink per frame, so the anchor with the highest
+    score stands for it (hockey_tpu detector.py:156-172, dual.py:449-458);
+    ties go to the lower anchor, as jnp.argmax breaks them."""
+    r, pad_top, pad_left = geometry
+    best = torch.argmax(max_scores, dim=1)
+    k = kpts[torch.arange(kpts.shape[0], device=kpts.device), best]
+    return torch.cat([(k[..., 0:1] - pad_left) / r, (k[..., 1:2] - pad_top) / r,
+                      k[..., 2:]], dim=-1)
+
+
 class DetectCore:
     """(model, frames (B, H, W, 3) uint8 on the device) -> padded
-    Detections in original-frame coordinates, or with `with_team_features`
-    (Detections, team features (B, D, 4)) (hockey_tpu detector.py:75-154
-    with its default rect=True, without the keypoint branch). Frames are
+    Detections in original-frame coordinates; with `with_team_features`
+    (Detections, team features (B, D, 4)), else with `with_keypoints`
+    (Detections, the best anchor's keypoints (B, K, 3) in frame px)
+    (hockey_tpu detector.py:75-175). With `rect` (the default) frames are
     letterboxed to the minimal stride-32 rectangle (736x1280 for 1080p at
-    1280), as ultralytics predict does.
+    1280), as ultralytics predict does; without it, to the imgsz square.
 
     The step is two halves around the suppression kernel:
     `candidates` (letterbox -> forward -> decode -> class max -> top-K and
@@ -109,43 +140,64 @@ class DetectCore:
                  frame_hw: Tuple[int, int], conf: float, iou: float = 0.45,
                  containment: float = 0.0, pre_topk: int = 256,
                  max_det: int = 64, dtype=torch.bfloat16,
-                 with_team_features: bool = False):
+                 with_team_features: bool = False,
+                 with_keypoints: bool = False, rect: bool = True):
         self.cfg, self.imgsz, self.frame_hw = cfg, imgsz, frame_hw
         self.with_team_features = with_team_features
+        self.with_keypoints = with_keypoints
         self.conf, self.iou, self.containment = conf, iou, containment
         self.pre_topk, self.max_det, self.dtype = pre_topk, max_det, dtype
-        self.in_hw = rect_shape(*frame_hw, imgsz)
+        self.rect = rect
+        self.in_hw = rect_shape(*frame_hw, imgsz) if rect else (imgsz, imgsz)
 
-    def candidates(self, model: YOLOv8, frames: torch.Tensor) -> Candidates:
+    def _decode(self, model: YOLOv8, frames: torch.Tensor):
+        """(raw head maps, boxes (B, A, 4), max scores (B, A), classes)."""
         with record_function("letterbox"):
-            x = letterbox_rect_batch(frames, self.imgsz, 32, self.dtype)
+            if self.rect:
+                x = letterbox_rect_batch(frames, self.imgsz, 32, self.dtype)
+            else:
+                x = letterbox_batch(frames, self.imgsz, self.dtype)
         with record_function("forward"):
             raw = forward_raw(model, x)
         with record_function("decode"):
             boxes, scores = decode_boxes(raw, self.cfg, self.in_hw)
             max_scores, classes = torch.max(scores, dim=-1)
+        return raw, boxes, max_scores, classes
+
+    def _candidates(self, boxes, max_scores, classes) -> Candidates:
         with record_function("nms_candidates"):
             return nms_candidates(
                 boxes, max_scores, classes.int(), score_threshold=self.conf,
                 iou_threshold=self.iou, containment_threshold=self.containment,
                 pre_topk=self.pre_topk)
 
+    def candidates(self, model: YOLOv8, frames: torch.Tensor) -> Candidates:
+        return self._candidates(*self._decode(model, frames)[1:])
+
     def finish(self, cand: Candidates, keep: torch.Tensor) -> Detections:
         with record_function("nms_select_unmap"):
             det = nms_select(cand, keep, score_threshold=self.conf,
                              max_det=self.max_det)
-            return det._replace(boxes=_unmap_boxes(det.boxes, *self.frame_hw,
-                                                   self.imgsz))
+            return det._replace(boxes=_unmap_boxes(
+                det.boxes, *self.frame_hw, self.imgsz, self.rect))
 
     def __call__(self, model: YOLOv8, frames: torch.Tensor):
-        c = self.candidates(model, frames)
+        raw, *decoded = self._decode(model, frames)
+        c = self._candidates(*decoded)
         with record_function("nms_suppress"):
             keep = suppress(c.matrix, c.keep0, c.thr)
         det = self.finish(c, keep)
-        if not self.with_team_features:
-            return det
-        with record_function("team_features"):
-            return det, team_features(frames, det.boxes)
+        if self.with_team_features:
+            with record_function("team_features"):
+                return det, team_features(frames, det.boxes)
+        if self.with_keypoints:
+            with record_function("keypoints"):
+                geometry = letterbox_geometry(*self.frame_hw, self.imgsz,
+                                              self.rect)
+                return det, best_keypoints(
+                    decode_keypoints(raw, self.cfg, self.in_hw), decoded[1],
+                    geometry)
+        return det
 
 
 def tracker_inputs(det: Detections):
@@ -190,7 +242,8 @@ class Detector:
     checkpoint for `model_name`. `fuse` folds BN; the model runs in
     `dtype` (bf16 on CUDA, f32 on the CPU by default). With
     `with_team_features` both steps also return each box slot's 4-dim team
-    feature (`team_features`)."""
+    feature (`team_features`); a pose model (`hockey-detection`)'s
+    `detect_batch` also returns its best anchor's keypoints."""
 
     def __init__(
         self,
@@ -234,13 +287,14 @@ class Detector:
             max_det=self.max_det,
             dtype=self.dtype,
             with_team_features=with_team_features,
+            with_keypoints=self.cfg.num_keypoints > 0,
         )
         self._track_step: Optional[DetectTrackStep] = None  # built lazily
 
     def detect_batch(self, frames):
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
         detector's device; with team features, (Detections, features
-        (B, D, 4))."""
+        (B, D, 4)); for a pose model, (Detections, keypoints (B, K, 3))."""
         with record_function("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
@@ -278,8 +332,8 @@ class Detector:
             return self._track_step(self.model, x, state)
 
     def detect(self, frame: np.ndarray) -> HostDetections:
-        """Single frame -> host-side unpadded detections (team features,
-        if any, are dropped)."""
+        """Single frame -> host-side unpadded detections (team features or
+        keypoints, if any, are dropped)."""
         out = self.detect_batch(frame[None])
         return HostDetections.from_padded(
-            out[0] if self.with_team_features else out, 0)
+            out if isinstance(out, Detections) else out[0], 0)

@@ -1,8 +1,9 @@
-"""YOLOv8 detect model: port of hockey_tpu/models/yolov8.py.
+"""YOLOv8 detect and pose models: port of hockey_tpu/models/yolov8.py.
 
 Public functions keep the JAX package's layout: `forward_raw` takes an
 NHWC batch and returns NHWC head maps, `decode_boxes` returns (B, A, 4)
-xyxy boxes and (B, A, nc) sigmoid scores. Inside, the network runs
+xyxy boxes and (B, A, nc) sigmoid scores, `decode_keypoints` a pose
+model's (B, A, K, 3) keypoints. Inside, the network runs
 NCHW-shaped tensors in channels_last memory (the same bytes as NHWC), the
 layout cuDNN's bf16 tensor-core convolutions prefer.
 """
@@ -99,10 +100,6 @@ class YOLOv8(nn.Module):
 
     def __init__(self, cfg: YoloConfig):
         super().__init__()
-        if cfg.num_keypoints:
-            raise NotImplementedError(
-                "pose models (keypoint head, decode_keypoints) are the rink "
-                "slice of the port; see ROADMAP.md 'Rink and the 2D map'")
         self.cfg = cfg
         c1, c2, c3, c4, c5 = cfg.channels
         n3, n6 = cfg.n_rep(3), cfg.n_rep(6)
@@ -133,9 +130,14 @@ class YOLOv8(nn.Module):
             reg=nn.ModuleList(Branch(c, creg, 4 * cfg.reg_max) for c in ch),
             cls=nn.ModuleList(Branch(c, ccls, cfg.num_classes) for c in ch),
         ))
+        if cfg.num_keypoints:  # pose head (hockey_tpu yolov8.py:176-185)
+            nk = 3 * cfg.num_keypoints
+            ckpt = max(ch[0] // 4, nk)
+            self.head["kpt"] = nn.ModuleList(Branch(c, ckpt, nk) for c in ch)
 
     def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
-        """x: (B, 3, H, W) -> per-level NCHW head maps {'box', 'cls'}."""
+        """x: (B, 3, H, W) -> per-level NCHW head maps {'box', 'cls'} and,
+        for a pose model, 'kpt' (B, 3K, Hi, Wi)."""
         b, n = self.backbone, self.neck
         y = b["down1"](b["stem"](x))
         y = b["c2f1"](y)
@@ -147,8 +149,9 @@ class YOLOv8(nn.Module):
         o4 = n["c2f_d1"](torch.cat([n["down_p3"](o3), t4], 1))
         o5 = n["c2f_d2"](torch.cat([n["down_p4"](o4), p5], 1))
         feats = (o3, o4, o5)
-        return {"box": [m(f) for m, f in zip(self.head["reg"], feats)],
-                "cls": [m(f) for m, f in zip(self.head["cls"], feats)]}
+        return {name: [m(f) for m, f in zip(self.head[key], feats)]
+                for name, key in (("box", "reg"), ("cls", "cls"), ("kpt", "kpt"))
+                if key in self.head}
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -173,8 +176,9 @@ def build_model(cfg: YoloConfig, params) -> YOLOv8:
 
 def forward_raw(model: YOLOv8, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
     """(B, H, W, 3) NHWC input -> per-level NHWC raw head maps: 'box'
-    (B, Hi, Wi, 4*reg_max) and 'cls' (B, Hi, Wi, nc), as the JAX
-    forward_raw returns them."""
+    (B, Hi, Wi, 4*reg_max), 'cls' (B, Hi, Wi, nc) and for a pose model
+    'kpt' (B, Hi, Wi, 3K), as the JAX forward_raw returns them. The maps
+    are NHWC-shaped views; `decode_*` flattens them in that order."""
     out = model(x.permute(0, 3, 1, 2))  # NCHW shape, NHWC bytes
     return {k: [m.permute(0, 2, 3, 1) for m in v] for k, v in out.items()}
 
@@ -220,3 +224,22 @@ def decode_boxes(raw: Dict[str, List[torch.Tensor]], cfg: YoloConfig, imgsz
     x2y2 = pts[None] + dist[..., 2:]
     boxes = torch.cat([x1y1, x2y2], dim=-1) * strs[None, :, None]
     return boxes, torch.sigmoid(cls_flat)
+
+
+def decode_keypoints(raw: Dict[str, List[torch.Tensor]], cfg: YoloConfig,
+                     imgsz) -> torch.Tensor:
+    """Raw NHWC 'kpt' maps -> (B, A, K, 3): x, y in letterboxed px and the
+    sigmoid confidence, xy = (kpt * 2 + (anchor - 0.5)) * stride
+    (hockey_tpu yolov8.py:323-338). Each (B, Hi, Wi, 3K) map is flattened
+    in NHWC order, so a row holds one anchor's K (x, y, conf) triples."""
+    b = raw["kpt"][0].shape[0]
+    k = cfg.num_keypoints
+    kpt = torch.cat([m.reshape(b, -1, k, 3) for m in raw["kpt"]], 1).float()
+    dev = kpt.device
+    in_hw = (imgsz, imgsz) if isinstance(imgsz, int) else tuple(imgsz)
+    pts = device_constant(("anchor_points", in_hw),
+                          lambda: anchor_points(in_hw)[0], dev, torch.float32)
+    strs = device_constant(("anchor_strides", in_hw),
+                           lambda: anchor_points(in_hw)[1], dev, torch.float32)
+    xy = (kpt[..., :2] * 2.0 + (pts[None, :, None] - 0.5)) * strs[None, :, None, None]
+    return torch.cat([xy, torch.sigmoid(kpt[..., 2:3])], dim=-1)

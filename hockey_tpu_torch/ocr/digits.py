@@ -9,8 +9,8 @@ is read in place. The net runs in f32 with TF32 off, as the JAX package
 runs it at `Precision.HIGHEST`.
 
 `normalize_crop` needs no OpenCV: the gray conversion and the 48x48
-bilinear resize follow OpenCV's fixed-point arithmetic for uint8, so the
-crop equals the JAX package's `cv2` chain bit for bit. (The team crops'
+bilinear resize (`ops/gray.py`) follow OpenCV's fixed-point arithmetic for
+uint8, so the crop equals the JAX package's `cv2` chain bit for bit. (The team crops'
 f32 resize, `teams/base.resize_crop`, is within 1 of `cv2.resize` per
 pixel; after the percentile stretch that moved 2 of 200 rendered crops
 to another number.) The training half of the JAX module (synthetic
@@ -28,17 +28,13 @@ import torch.nn as nn
 from ..models.checkpoint import load_params, shipped_weights_path
 from ..models.layers import Conv
 from ..models.yolov8 import params_from_jax
+from ..ops.gray import gray_resize
 
 CROP = 48
 TENS_NONE = 10  # tens-head class meaning "single digit"
 # (name, in, out, kernel, stride) of hockey_tpu digits.py:34-61
 LAYERS = (("c0", 1, 16, 3, 1), ("c1", 16, 32, 3, 2), ("c2", 32, 64, 3, 2),
           ("c3", 64, 128, 3, 2), ("c4", 128, 192, 3, 2))
-# OpenCV's fixed-point BGR -> gray for uint8 (15-bit weights of B, G, R)
-# and its 11-bit bilinear weights; both checked bit for bit against cv2 in
-# tests/test_torch_ocr.py
-_GRAY_BGR, _GRAY_SHIFT = (3735, 19235, 9798), 15
-_COEF_SCALE = 2048
 
 
 class DigitNet(nn.Module):
@@ -78,53 +74,11 @@ def load_default_params() -> Optional[Dict]:
     return None if path is None else load_params(path)
 
 
-def bgr_to_gray(img: np.ndarray) -> np.ndarray:
-    """(h, w, 3) uint8 BGR -> (h, w) uint8, as cv2.COLOR_BGR2GRAY rounds."""
-    x = img.astype(np.int32)
-    cb, cg, cr = _GRAY_BGR
-    g = (x[..., 0] * cb + x[..., 1] * cg + x[..., 2] * cr
-         + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT
-    return g.astype(np.uint8)
-
-
-def _taps(src: int, dst: int, clamp_weight: bool):
-    """(first source index, second, weight of first, weight of second) of
-    each of `dst` samples over `src` pixels: half-pixel centres, weights
-    rounded to 1/2048. Where a sample falls past an edge, the columns
-    (`clamp_weight`) move it onto the edge pixel; the rows keep its weight
-    and read the edge row twice, as OpenCV does."""
-    scale = np.float64(1.0) / (np.float64(dst) / np.float64(src))
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-    i = np.floor(f).astype(np.int64)
-    f = (f - i.astype(np.float32)).astype(np.float32)
-    if clamp_weight:
-        out = (i < 0) | (i >= src - 1)
-        f[out] = 0.0
-        i = np.clip(i, 0, src - 1)
-    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int64)
-    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int64)
-    return np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1), w0, w1
-
-
-def resize_gray(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """(h, w) uint8 -> (oh, ow) uint8 as cv2.resize INTER_LINEAR gives it:
-    columns then rows in fixed point, the rows' products taken at 16-bit
-    grade as OpenCV's vector path does (an exact 2x shrink, which OpenCV
-    runs as INTER_AREA, comes out the same)."""
-    x = img.astype(np.int64)
-    c0, c1, a0, a1 = _taps(img.shape[1], out_hw[1], True)
-    horiz = x[:, c0] * a0 + x[:, c1] * a1
-    r0, r1, b0, b1 = _taps(img.shape[0], out_hw[0], False)
-    v = ((((horiz[r0] >> 4) * b0[:, None]) >> 16)
-         + (((horiz[r1] >> 4) * b1[:, None]) >> 16) + 2) >> 2
-    return np.clip(v, 0, 255).astype(np.uint8)
-
-
 def normalize_crop(crop_bgr: np.ndarray) -> np.ndarray:
     """Torso crop (h, w, 3) uint8 BGR -> (48, 48, 1) f32 contrast-normalised
     gray: 5th and 95th percentiles stretched to [0, 1]
     (hockey_tpu digits.py:64-72)."""
-    g = resize_gray(bgr_to_gray(crop_bgr), (CROP, CROP)).astype(np.float32)
+    g = gray_resize(crop_bgr, (CROP, CROP)).astype(np.float32)
     lo, hi = np.percentile(g, 5), np.percentile(g, 95)
     g = np.clip((g - lo) / max(hi - lo, 1.0), 0.0, 1.0)
     return g[..., None].astype(np.float32)

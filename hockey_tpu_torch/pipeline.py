@@ -27,6 +27,20 @@ its labels carry the jersey number that `ocr/jersey.py` has read for a
 track. PUCK_DETECTION runs the sliced puck detector in batches of up to
 16 frames (frame by frame at frame batch 1) and the puck tracker on the
 host.
+
+Rink keypoints and the 2D map (`enable_rink_keypoints`, `show_2d_map`;
+hockey_tpu pipeline.py:47-108, 330-384): outside PUCK_DETECTION the
+player detector becomes the dual step (models/dual.py: player branch and
+rink pose model over one upload, batches of at most 32 frames), which has
+no fused tracker, so the tracking modes run the host ByteTrack after it;
+with an injected player detector a separate `RinkKeypointDetector` reads
+the keypoints, once per batch. Each frame's keypoints above
+`keypoint_confidence_threshold` feed the calibrator (with `show_2d_map`),
+whose stabilised homography draws the map. `process_frame` draws the
+keypoints first and gives the calibrator's motion probe that drawn frame,
+as the JAX package does; the numeric entry points draw nothing and give
+it the raw frame. PUCK_DETECTION ignores both options: the JAX package
+builds the rink detector in that mode and never runs it.
 """
 
 from __future__ import annotations
@@ -46,9 +60,13 @@ from .core.config import (
     ProcessingMode,
 )
 from .core.device import resolve_device
+from .homography.calibrator import CalibratorState
+from .homography.keypoints import RinkKeypointDetector, keypoints_from_array
 from .models.detector import Detector, HostDetections
+from .models.dual import DualDetector
 from .ocr.jersey import JerseyNumberReader
 from .ops.nms import Detections
+from .rinkmap.renderer import RinkRenderer, bottom_center_anchors
 from .slicing.sahi import PuckPipeline
 from .teams.base import host_crops
 from .teams.facade import TeamClassifier
@@ -63,6 +81,10 @@ _TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
 # PUCK_DETECTION's frames per device step at most: each frame is T tiles
 # (hockey_tpu pipeline.py:404-410)
 PUCK_MAX_BATCH = 16
+# the dual step's frames per batch at most (hockey_tpu pipeline.py:398-402)
+DUAL_MAX_BATCH = 32
+# homography_tier gauge of the stabiliser's tier
+_TIER_GAUGE = {"fine": 2.0, "coarse": 1.0}
 
 # (boxes (n, 4), scores (n,), classes (n,) int32, tracker_ids (n,) int32)
 Tracked = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
@@ -87,7 +109,9 @@ class VideoProcessor:
     tracking is fused into the detect step on the device on CUDA with a
     frame batch above 1, and runs in the host ByteTrack elsewhere; both get
     the duplicate-kill knobs. In TEAM_CLASSIFICATION the detector also
-    computes each detection's team features in its step."""
+    computes each detection's team features in its step. With rink
+    keypoints on, the dual step has no fused tracker: the host ByteTrack
+    runs (see the module's docstring)."""
 
     def __init__(
         self,
@@ -100,9 +124,14 @@ class VideoProcessor:
         team_names: Optional[Tuple[str, str]] = None,
         player_detector=None,
         dtype=None,
+        enable_rink_keypoints: bool = False,
+        show_2d_map: bool = False,
+        rink_checkpoint: Optional[str] = None,
+        calibration_profile: Optional[str] = None,
     ):
         """`dtype`: the detectors' compute type (default bf16 on CUDA, f32
-        on the CPU)."""
+        on the CPU). `show_2d_map` implies the rink keypoints;
+        `calibration_profile` is a saved calibrator profile to start from."""
         self.mode = ProcessingMode(mode)
         self.config = config or Config()
         self.device = resolve_device(device)
@@ -111,6 +140,11 @@ class VideoProcessor:
         self.last_frame_result = None  # set per frame in the tracking modes
         self.last_track_batch = None   # the fused step's last raw output
         teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
+        want_rink = (enable_rink_keypoints or show_2d_map) \
+            and self.mode != ProcessingMode.PUCK_DETECTION
+        self.use_dual = want_rink and player_detector is None
+        self.rink_detector = None
+        self.last_keypoints = None  # the last frame's RinkKeypoints
         self.puck_pipeline = None
         if self.mode == ProcessingMode.PUCK_DETECTION:
             # the JAX VideoProcessor also builds the YOLOv8x player
@@ -121,11 +155,30 @@ class VideoProcessor:
             self.puck_pipeline = PuckPipeline(
                 self.config, frame_hw=frame_hw, checkpoint=puck_checkpoint,
                 device=self.device, dtype=dtype)
+        elif self.use_dual:
+            self.player_detector = DualDetector(
+                self.config, frame_hw=frame_hw, checkpoint=checkpoint,
+                rink_checkpoint=rink_checkpoint, with_team_features=teams,
+                device=self.device, dtype=dtype)
+            print("Rink keypoint detection enabled (dual step)")
         else:
             self.player_detector = player_detector or Detector(
                 self.config.player_model_name, self.config, frame_hw=frame_hw,
                 checkpoint=checkpoint, device=self.device, dtype=dtype,
                 with_team_features=teams)
+            if want_rink:
+                self.rink_detector = RinkKeypointDetector(
+                    self.config.hockey_model_name, self.config,
+                    frame_hw=frame_hw, checkpoint=rink_checkpoint,
+                    device=self.device, dtype=dtype)
+                print("Rink keypoint detection enabled")
+        self.show_2d_map = show_2d_map
+        self.rink_renderer = self.calibrator = None
+        if show_2d_map:
+            self.rink_renderer = RinkRenderer(config=self.config)
+            self.calibrator = CalibratorState(frame_hw=frame_hw)
+            if calibration_profile:
+                self.calibrator.load_profile(calibration_profile)
         self.box_annotator, self.label_annotator = make_annotators(self.config)
         self.smooth_annotator = SmoothAnnotator(
             self.box_annotator, smoothing_factor=self.config.smoothing_factor,
@@ -157,6 +210,12 @@ class VideoProcessor:
             else:
                 print(f"PLAYER_TRACKING; tracker: {tracker}; jersey-number "
                       f"OCR: {self.ocr.backend or 'none'}")
+
+    def _batch(self) -> int:
+        """Frames per device step: `config.resolved_frame_batch`, at most
+        DUAL_MAX_BATCH on the dual step."""
+        b = self.config.resolved_frame_batch(self.device)
+        return min(b, DUAL_MAX_BATCH) if self.use_dual else b
 
     @property
     def _fused_features(self) -> bool:
@@ -191,10 +250,21 @@ class VideoProcessor:
             self.timers.count("detections", len(d))
         return rows
 
+    def _batch_keypoints(self, batch: np.ndarray) -> Optional[np.ndarray]:
+        """The batch's rink keypoints (B, K, 3) on the host, or None with
+        rink keypoints off: the dual step's, after its `detect_batch` on
+        this batch, or the separate rink detector's, run here."""
+        if self.use_dual:
+            return self.player_detector.last_keypoints
+        if self.rink_detector is None:
+            return None
+        with self.timers.stage("keypoints"):
+            return self.rink_detector.detect_keypoints_batch(batch)
+
     def _steps(self, frames: Iterable[np.ndarray]) -> Iterator[Tuple[np.ndarray, Dict]]:
         """(frame, the keyword arguments of `process_frame` for it), batch
         by batch in the mode's route."""
-        b = self.config.resolved_frame_batch(self.device)
+        b = self._batch()
         teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
         for batch, n in batched(iter(frames), b):
             if self.use_fused_tracker:
@@ -204,23 +274,37 @@ class VideoProcessor:
                     self.tracker.state = out[-1]
                     self.last_track_batch = out
                     rows = unpack_tracked(out)
+                kpts = self._batch_keypoints(batch)
                 for i in range(n):
-                    yield batch[i], dict(pretracked=rows[i][:4],
-                                         team_feats=rows[i][4])
+                    yield batch[i], dict(
+                        pretracked=rows[i][:4], team_feats=rows[i][4],
+                        rink_kpts=None if kpts is None else kpts[i])
                 continue
-            for i, (det, tf) in enumerate(self._detect_batch(batch, n)):
+            rows = self._detect_batch(batch, n)
+            kpts = self._batch_keypoints(batch)
+            for i, (det, tf) in enumerate(rows):
                 # with frame batch 1 the JAX package detects each frame
                 # alone, which drops the fused features, and the classifier
                 # samples its crops from the frame instead
-                yield batch[i], dict(det=det,
-                                     team_feats=tf if teams and b > 1 else None)
+                yield batch[i], dict(
+                    det=det, team_feats=tf if teams and b > 1 else None,
+                    rink_kpts=None if kpts is None else kpts[i])
+
+    def _numeric_steps(self, frames: Iterable[np.ndarray]) -> Iterator[Tuple]:
+        """`_tracked_result` of each frame, then its keypoints and
+        calibrator stages without drawing (the probe sees the raw frame)."""
+        for frame, kw in self._steps(frames):
+            rink_kpts = kw.pop("rink_kpts")
+            out = self._tracked_result(frame, **kw)
+            self._rink(frame, rink_kpts, draw=False)
+            yield out
 
     # ------------------------------------------------------------------
     def detect_frames(self, frames: Iterable[np.ndarray]) -> Iterator[HostDetections]:
         """Frames (H, W, 3) uint8 -> each frame's filtered detections, run
-        in device batches of `config.resolved_frame_batch`."""
-        b = self.config.resolved_frame_batch(self.device)
-        for batch, n in batched(iter(frames), b):
+        in device batches of `config.resolved_frame_batch` (at most 32 on
+        the dual step)."""
+        for batch, n in batched(iter(frames), self._batch()):
             for det, _ in self._detect_batch(batch, n):
                 yield det
 
@@ -228,22 +312,24 @@ class VideoProcessor:
         """Frames (H, W, 3) uint8 -> each frame's (boxes, scores, classes,
         tracker_ids) of the detections that acquired an emittable track, in
         device batches of `config.resolved_frame_batch` (PLAYER_TRACKING).
-        The OCR reader reads each frame's due players, without drawing."""
+        The OCR reader reads each frame's due players, without drawing; with
+        rink keypoints on, `last_keypoints` and the calibrator's
+        `stabilizer.current` are this frame's when it is yielded."""
         if self.mode != ProcessingMode.PLAYER_TRACKING:
             raise ValueError("track_frames needs mode PLAYER_TRACKING")
-        for frame, kw in self._steps(frames):
-            yield self._tracked_result(frame, **kw)[:4]
+        for out in self._numeric_steps(frames):
+            yield out[:4]
 
     def classify_frames(self, frames: Iterable[np.ndarray]) -> Iterator[Dict]:
         """Frames (H, W, 3) uint8 -> each frame's `last_frame_result`
         (boxes, scores, classes, tracker_ids, team_ids: players first, then
         goalies with team GOALIE_TEAM_ID), without drawing
         (TEAM_CLASSIFICATION). Fit the classifier first (`fit_teams`);
-        unfitted, it takes white_ratio > 0.4 as team 0."""
+        unfitted, it takes white_ratio > 0.4 as team 0. With rink keypoints
+        on, as `track_frames`."""
         if self.mode != ProcessingMode.TEAM_CLASSIFICATION:
             raise ValueError("classify_frames needs mode TEAM_CLASSIFICATION")
-        for frame, kw in self._steps(frames):
-            self._tracked_result(frame, **kw)
+        for _ in self._numeric_steps(frames):
             yield self.last_frame_result
 
     def _puck_steps(self, frames: Iterable[np.ndarray]
@@ -296,8 +382,7 @@ class VideoProcessor:
             iter(frames), 0,
             cfg.initialization_stride * (cfg.max_initialization_frames + 1),
             cfg.initialization_stride)
-        b = cfg.resolved_frame_batch(self.device)
-        for batch, n in batched(sample, b):
+        for batch, n in batched(sample, self._batch()):
             for frame, (det, _) in zip(batch, self._detect_batch(batch, n)):
                 pmask = det.classes == PLAYER_CLASS_ID
                 pboxes = det.boxes[pmask]
@@ -329,6 +414,50 @@ class VideoProcessor:
         return self.fit_teams(frame_generator(source_path))
 
     # ------------------------------------------------------------------
+    def _detect_frame(self, frame: np.ndarray
+                      ) -> Tuple[HostDetections, Optional[np.ndarray]]:
+        """One frame detected alone: its filtered detections and, on the
+        dual step, its rink keypoints (K, 3) (else None)."""
+        with self.timers.stage("detect"):
+            det = self._filter(self.player_detector.detect(frame))
+        return det, self.player_detector.last_keypoints[0] if self.use_dual else None
+
+    def _rink(self, frame: np.ndarray, rink_kpts: Optional[np.ndarray],
+              draw: bool) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """The keypoints and rink2d stages of one frame (hockey_tpu
+        pipeline.py:330-380): `rink_kpts` (K, 3) (None: the separate rink
+        detector's, or no rink at all) -> `last_keypoints`, those above
+        `keypoint_confidence_threshold`; with `draw` they are drawn on the
+        frame first. With `show_2d_map` the calibrator then takes the frame
+        (drawn or raw) and the keypoints, and the homography_* gauges are
+        set. Returns (the frame, the stabilised homography or None)."""
+        if rink_kpts is None and self.rink_detector is not None:
+            rink_kpts = self._batch_keypoints(frame[None])[0]
+        if rink_kpts is None:
+            return frame, None
+        c = self.config
+        with self.timers.stage("keypoints"):
+            kpts = keypoints_from_array(rink_kpts, c.keypoint_confidence_threshold)
+            if kpts:
+                if draw:
+                    frame = RinkKeypointDetector.visualize_keypoints(
+                        frame, kpts, radius=c.keypoint_radius, show_labels=True)
+                self.timers.count("keypoints", len(kpts))
+        self.last_keypoints = kpts
+        if not self.show_2d_map:
+            return frame, None
+        with self.timers.stage("rink2d"):
+            h = self.calibrator.process_frame(frame, kpts)
+            q = self.calibrator.last_quality
+            if q is not None:
+                self.timers.gauge("homography_inlier_ratio", q.inlier_ratio)
+                self.timers.gauge("homography_reproj_error_ft",
+                                  q.mean_reprojection_error)
+                self.timers.gauge("homography_points", q.n_points)
+                self.timers.gauge("homography_tier", _TIER_GAUGE.get(
+                    self.calibrator.stabilizer.current_tier, 0.0))
+        return frame, h
+
     def _tracked_result(self, frame: np.ndarray,
                         det: Optional[HostDetections] = None,
                         team_feats: Optional[np.ndarray] = None,
@@ -336,12 +465,9 @@ class VideoProcessor:
         """The tracking modes' numbers for one frame: (boxes, scores,
         classes, tids, lookup, labels), also kept as `last_frame_result`.
         `pretracked` rows come from the fused step (else `det` goes through
-        the tracker here, else the frame is detected here); `team_feats`
-        (k, 4) align with `pretracked`, or with `det` before the tracker."""
+        the tracker here); `team_feats` (k, 4) align with `pretracked`, or
+        with `det` before the tracker."""
         if pretracked is None:
-            if det is None:
-                with self.timers.stage("detect"):
-                    det = self._filter(self.player_detector.detect(frame))
             with self.timers.stage("track"):
                 pretracked = self.tracker.update(det.boxes, det.scores, det.classes)
         boxes, scores, classes, tids = pretracked
@@ -393,19 +519,22 @@ class VideoProcessor:
     def process_frame(self, frame: np.ndarray,
                       det: Optional[HostDetections] = None,
                       team_feats: Optional[np.ndarray] = None,
-                      pretracked: Optional[Tracked] = None) -> np.ndarray:
+                      pretracked: Optional[Tracked] = None,
+                      rink_kpts: Optional[np.ndarray] = None) -> np.ndarray:
         """Draw one frame. PLAYER_DETECTION: `det`'s boxes (the frame is
         detected here without it) with Player and Goalie labels. The
         tracking modes: `_tracked_result`'s rows, smoothed per tracker id;
         PLAYER_TRACKING labels '#id', '#id (number)' or 'Goalie #id',
-        TEAM_CLASSIFICATION the team's name or 'Goalie', coloured by team.
-        PUCK_DETECTION: the puck pipeline on the frame alone."""
+        TEAM_CLASSIFICATION the team's name or 'Goalie', coloured by team;
+        with rink keypoints on, the keypoints (`rink_kpts`, this frame's
+        row of the batch's) drawn under the boxes and, with `show_2d_map`,
+        the map in the bottom-right corner. PUCK_DETECTION: the puck
+        pipeline on the frame alone."""
         if self.mode == ProcessingMode.PUCK_DETECTION:
             return self.puck_pipeline.process_frame(frame)
+        if det is None and pretracked is None:
+            det, rink_kpts = self._detect_frame(frame)
         if self.mode == ProcessingMode.PLAYER_DETECTION:
-            if det is None:
-                with self.timers.stage("detect"):
-                    det = self._filter(self.player_detector.detect(frame))
             with self.timers.stage("annotate"):
                 lookup = np.where(det.classes == GOALKEEPER_CLASS_ID,
                                   GOALIE_TEAM_ID, 0).astype(np.int32)
@@ -417,10 +546,19 @@ class VideoProcessor:
 
         boxes, scores, _, tids, lookup, labels = self._tracked_result(
             frame, det, team_feats, pretracked)
+        # the keypoints are drawn on the frame before the calibrator's probe
+        # reads it, as in the JAX package (hockey_tpu pipeline.py:345-369)
+        frame, h = self._rink(frame, rink_kpts, draw=True)
         with self.timers.stage("annotate"):
             out = self.smooth_annotator.annotate(frame.copy(), boxes, tids,
                                                  scores, lookup)
-            return self.label_annotator.annotate(out, boxes, labels, lookup)
+            out = self.label_annotator.annotate(out, boxes, labels, lookup)
+        if h is not None:
+            with self.timers.stage("rink2d"):
+                rink_map = self.rink_renderer.render(
+                    h, bottom_center_anchors(boxes), lookup)
+                out = self.rink_renderer.overlay(out, rink_map)
+        return out
 
     def process_video(self, source_path: str,
                       limit: Optional[int] = None) -> Iterator[np.ndarray]:
@@ -437,8 +575,7 @@ class VideoProcessor:
                 yield out
             return
         if self.mode == ProcessingMode.PLAYER_DETECTION:
-            b = self.config.resolved_frame_batch(self.device)
-            for batch, n in batched(frames, b):
+            for batch, n in batched(frames, self._batch()):
                 for i, (det, _) in enumerate(self._detect_batch(batch, n)):
                     yield self.process_frame(batch[i], det)
             return

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's detect step goes, on one GPU.
 
-    python3 scripts/torch_detect_profile.py [--track | --teams | --puck] [--out F]
+    python3 scripts/torch_detect_profile.py [--track | --teams | --puck | --rink] [--out F]
 
 Runs `Detector.detect_batch` (the shipped YOLOv8x player detector, bf16)
 on seeded synthetic 1080p frames (736x1280 network input; the frames of
@@ -60,6 +60,15 @@ the suppression kernel's device time at each of its two call sites per
 batch (its launches in time order alternate per-tile NMS, merge), with
 the busy share, copies and top kernels as above.
 
+With `--rink` it profiles the dual step of the rink path instead,
+`DualDetector.run` as TEAM_CLASSIFICATION with the 2D map runs it (the
+player branch with the team branch, then the YOLOv8s-pose rink model on
+the 512 square, packed into one (8, 64 * 11 + 168) copy to the host), on
+chip_smoke.py's frames with the rink drawn under the players: the detect
+ranges, team_features, rink_letterbox, rink_forward, rink_decode and pack,
+the suppression kernel by name (one launch per batch), with the busy
+share, copies and top kernels as above.
+
 Prints one JSON object as its last line (and writes it to `--out` when
 given). Needs CUDA.
 """
@@ -85,6 +94,7 @@ from chip_smoke import (  # noqa: E402
     launches_in,
     puck_scene,
     replay_on_card,
+    rink_scene,
     synthetic_frames,
 )
 from hockey_tpu_torch.core.config import Config  # noqa: E402
@@ -93,6 +103,7 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     team_features,
     tracker_inputs,
 )
+from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
 from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.slicing.sahi import SlicedDetector  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
@@ -106,6 +117,8 @@ TRACK_STAGES = STAGES + ("tracker_scan", "pack")
 TEAM_STAGES = STAGES + ("team_features", "tracker_scan", "pack")
 PUCK_STAGES = ("upload", "slice", "letterbox", "forward", "decode",
                "nms_candidates", "nms_suppress", "nms_select_unmap", "merge")
+RINK_STAGES = STAGES + ("team_features", "rink_letterbox", "rink_forward",
+                        "rink_decode", "pack")
 ALONE_TURNS = 4
 
 
@@ -157,6 +170,9 @@ def main() -> int:
                          "team branch (TEAM_CLASSIFICATION)")
     ap.add_argument("--puck", action="store_true",
                     help="profile the sliced puck step (PUCK_DETECTION)")
+    ap.add_argument("--rink", action="store_true",
+                    help="profile the dual step (player, team and rink "
+                         "branches; the 2D map's device side)")
     args = ap.parse_args()
     track = args.track or args.teams
     if not torch.cuda.is_available():
@@ -168,9 +184,17 @@ def main() -> int:
     print(card, flush=True)
 
     cfg = Config()
-    stages = (PUCK_STAGES if args.puck else TEAM_STAGES if args.teams
-              else TRACK_STAGES if track else STAGES)
-    if args.puck:
+    stages = (PUCK_STAGES if args.puck else RINK_STAGES if args.rink
+              else TEAM_STAGES if args.teams else TRACK_STAGES if track
+              else STAGES)
+    if args.rink:
+        det = DualDetector(cfg, FRAME_HW, device="cuda", dtype=torch.bfloat16,
+                           with_team_features=True)
+        frames = rink_scene(seed=0, n=BATCH)
+
+        def step(b):
+            det.run(frames)[3].cpu()  # the one copy to the host
+    elif args.puck:
         det = SlicedDetector(cfg, FRAME_HW, device="cuda", dtype=torch.bfloat16)
         frames = puck_scene(seed=0, n=BATCH)
 
@@ -192,7 +216,7 @@ def main() -> int:
             state[0] = out[-1]
             outs.append(out)
             out[3].cpu()  # the one copy to the host per batch
-    elif not args.puck:
+    elif not (args.puck or args.rink):
         frames = synthetic_frames(seed=0, n=BATCH)
 
         def step(b):

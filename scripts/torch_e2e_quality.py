@@ -63,8 +63,8 @@ def load_clip(path: str):
     """(frames (N, s, s, 3) uint8, per-frame labels dicts)."""
     z = np.load(path)
     offs = np.concatenate([[0], np.cumsum(z["n"])])
-    keys = [k for k in ("boxes", "classes", "track_ids", "team_ids", "numbers")
-            if k in z]
+    keys = [k for k in ("boxes", "classes", "track_ids", "team_ids", "numbers",
+                        "rink_xy") if k in z]
     labels = [{k: z[k][a:b] for k in keys} for a, b in zip(offs[:-1], offs[1:])]
     return z["frames"], labels
 

@@ -135,8 +135,8 @@ def test_entry_points_refuse_what_the_slice_lacks():
     vp = VideoProcessor(mode=ProcessingMode.PUCK_DETECTION, device="cpu")
     assert vp.player_detector is None
     assert len(vp.puck_pipeline.sliced.grid) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Detector("hockey-detection", device="cpu")
+    # the rink pose model is ported: its Detector returns keypoints too
+    assert Detector("hockey-detection", device="cpu", imgsz=128).core.with_keypoints
     # TEAM_CLASSIFICATION and the fused team features are ported now
     det = Detector(PLAYER, device="cpu", imgsz=128, with_team_features=True)
     vp = VideoProcessor(mode=ProcessingMode.TEAM_CLASSIFICATION, device="cpu",

@@ -2,9 +2,10 @@
 the JAX package, builds no kernel through torch.utils.cpp_extension, and
 everything chip_smoke.py imports, the tracker, the PLAYER_TRACKING
 modules with the jersey-number OCR, the team modules of
-TEAM_CLASSIFICATION and the sliced puck detector among it, also loads
-without cv2, msgpack or sklearn (the GPU machine has none of them); so
-does scripts/torch_e2e_puck.py."""
+TEAM_CLASSIFICATION, the sliced puck detector, the dual step and the
+rink, homography and 2D-map modules among it, also loads without cv2,
+msgpack or sklearn (the GPU machine has none of them); so do
+scripts/torch_e2e_puck.py and scripts/torch_e2e_homography.py."""
 
 import os
 import re
@@ -51,7 +52,12 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.teams.segmentation", "hockey_tpu_torch.teams.simple",
     "hockey_tpu_torch.teams.facade", "hockey_tpu_torch.ui.team_selector",
     "hockey_tpu_torch.ocr.digits", "hockey_tpu_torch.ocr.jersey",
-    "hockey_tpu_torch.slicing.sahi")
+    "hockey_tpu_torch.slicing.sahi", "hockey_tpu_torch.models.dual",
+    "hockey_tpu_torch.ops.gray", "hockey_tpu_torch.homography.keypoints",
+    "hockey_tpu_torch.homography.calibrator",
+    "hockey_tpu_torch.homography.ransac",
+    "hockey_tpu_torch.homography.stabilizer",
+    "hockey_tpu_torch.rinkmap.dimensions", "hockey_tpu_torch.rinkmap.renderer")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
@@ -65,10 +71,10 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in blocked)
 assert not leaked, leaked
 """
 
-_IMPORT_PUCK_HARNESS = """
+_IMPORT_HARNESS = """
 import importlib.util
 spec = importlib.util.spec_from_file_location(
-    "torch_e2e_puck", sys.argv[2] + "/scripts/torch_e2e_puck.py")
+    "{0}", sys.argv[2] + "/scripts/{0}.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
 """
@@ -77,7 +83,9 @@ _BLOCKED = ("jax", "flax", "optax", "hockey_tpu", "cv2", "msgpack", "sklearn")
 CASES = {
     "package_without_jax": (_BLOCKED, _IMPORT_PACKAGE),
     "chip_smoke_closure": (_BLOCKED, _IMPORT_SMOKE),
-    "puck_harness": (_BLOCKED, _IMPORT_PUCK_HARNESS),
+    "puck_harness": (_BLOCKED, _IMPORT_HARNESS.format("torch_e2e_puck")),
+    "homography_harness": (_BLOCKED,
+                           _IMPORT_HARNESS.format("torch_e2e_homography")),
 }
 
 
@@ -103,6 +111,7 @@ def _sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "torch_e2e_puck.py")
+    yield os.path.join(ROOT, "scripts", "torch_e2e_homography.py")
 
 
 def test_sources_name_no_forbidden_import():

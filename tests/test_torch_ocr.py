@@ -24,6 +24,7 @@ from hockey_tpu_torch.core.config import Config, ProcessingMode
 from hockey_tpu_torch.models.detector import HostDetections
 from hockey_tpu_torch.ocr import digits
 from hockey_tpu_torch.ocr.jersey import JerseyNumberReader
+from hockey_tpu_torch.ops.gray import bgr_to_gray, gray_resize
 from hockey_tpu_torch.pipeline import VideoProcessor
 from tests import test_pipeline as jax_golden
 
@@ -57,9 +58,9 @@ def rendered():
 def test_gray_and_resize_equal_cv2(h, w):
     img = np.random.default_rng(h * 1000 + w).integers(0, 256, (h, w, 3),
                                                       dtype=np.uint8)
-    gray = digits.bgr_to_gray(img)
-    np.testing.assert_array_equal(gray, cv2.cvtColor(img, cv2.COLOR_BGR2GRAY))
-    np.testing.assert_array_equal(digits.resize_gray(gray, (48, 48)),
+    gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    np.testing.assert_array_equal(bgr_to_gray(img), gray)
+    np.testing.assert_array_equal(gray_resize(img, (48, 48)),
                                   cv2.resize(gray, (48, 48)))
 
 

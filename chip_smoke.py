@@ -97,16 +97,43 @@ Phases, each announced on its own line with the elapsed seconds:
    rink2d among them), the rink ranges' device ms and launches per batch
    (torch.profiler), and the kernel's device, call, plain and bound times
    at both call sites, as one JSON line;
-9. the kernel table as one JSON line, then the result line.
+9. team cascade: phase 6's detector and scene, fitted on frames 0-20
+   (`initialization_stride` 1), headless, so `TeamClassifier(
+   use_segmentation=False)` goes interactive -> robust, and with
+   `use_robust=False` -> hybrid; each time `fit_teams` and
+   `classify_frames` (3 batches of 8), failing unless the strategy asked
+   for is the one that ran; MobileNetV3 (f32, TF32 off) on the card
+   against the CPU on the last batch's player crops (cosine of each
+   embedding >= 0.9999, max |diff| printed), the team ids from the card's
+   features equal to those from the CPU's, the kernel at the step's last
+   batch equal to its plain version; it prints the team accuracy, the
+   fit's and the classifiers' times and the embed's device and call ms
+   for the fit's crops and one frame's, as one JSON line;
+10. multi-clip: 4 clips of 16 frames through
+   `MultiClipProcessor.run_frames` in PLAYER_TRACKING with phase 4's
+   detector, one detection batch of B = 4 per frame row (16 kernel
+   launches; the kernel at B = 4 against its plain version, timed); each
+   clip against the clip alone through a single-clip VideoProcessor at
+   frame batch 4: in bf16 reported (a frame's rounding depends on its
+   position in the batch), with the detector in f32 ids equal and boxes
+   within MULTICLIP_BOX_PX; frames/s over all clips, as one JSON line;
+11. session: TEAM_CLASSIFICATION on the fused step over 4 batches; a run
+   saved with `save_run_state` after 2 batches and resumed with
+   `load_run_state` in a fresh processor must give the uninterrupted
+   run's tracker ids, team ids and boxes on every frame;
+12. the kernel table as one JSON line (every site timed in this run under
+   `sites`), then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -119,6 +146,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
+from hockey_tpu_torch.core.session import load_run_state, save_run_state  # noqa: E402
 from hockey_tpu_torch.homography.ransac import dlt_homography, project  # noqa: E402
 from hockey_tpu_torch.homography.calibrator import CalibratorState  # noqa: E402
 from hockey_tpu_torch.homography.keypoints import (  # noqa: E402
@@ -136,6 +164,10 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
 )
 from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
 from hockey_tpu_torch.models.layers import fuse_for_inference  # noqa: E402
+from hockey_tpu_torch.models.mobilenetv3 import build_embedder, embed  # noqa: E402
+from hockey_tpu_torch.models.mobilenetv3 import \
+    load_default_params as load_embed_params  # noqa: E402
+from hockey_tpu_torch.multiclip import MultiClipProcessor  # noqa: E402
 from hockey_tpu_torch.models.yolov8 import (  # noqa: E402
     build_model,
     decode_boxes,
@@ -156,6 +188,10 @@ from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
 from hockey_tpu_torch.rinkmap.dimensions import NHL  # noqa: E402
 from hockey_tpu_torch.rinkmap.renderer import bottom_center_anchors  # noqa: E402
 from hockey_tpu_torch.slicing.sahi import MERGE_MAX_DET, SlicedDetector  # noqa: E402
+from hockey_tpu_torch.teams.base import host_crops, standardize_crops  # noqa: E402
+from hockey_tpu_torch.teams.facade import TeamClassifier  # noqa: E402
+from hockey_tpu_torch.teams.hybrid import HybridTeamClassifier  # noqa: E402
+from hockey_tpu_torch.teams.robust import RobustTeamClassifier  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
@@ -168,6 +204,15 @@ BATCH = 8
 N_BATCHES = 3
 # the generator's team of player j is j % 2 (synthetic_frames' `teams`)
 N_TEAMS = 2
+MULTICLIP_K = 4  # phase 10's clips, the detection batch of its rows
+# phase 10: a clip's boxes in lockstep against the clip alone, both in
+# batches of 4, with the detector in f32 (px). A frame sits at another
+# position of its batch in the two runs, and the convolutions round a
+# sample by its position: cuDNN's f32 convolutions (TF32, PyTorch's
+# default for cuDNN) moved boxes by 0.027 px, bf16 by 0.21 px on one
+# frame and swapped two ids on 3 of 64 frames; oneDNN f32 on the CPU
+# 1.2e-4 px. In f32 the ids must be equal
+MULTICLIP_BOX_PX = 0.1
 # H100 SXM peaks (NVIDIA data sheet) for the bound of the suppression
 # kernel: it moves f32 matrix rows and does f32 comparisons
 HBM_BYTES_PER_S = 3.35e12
@@ -265,9 +310,15 @@ def suppress_bound(keep: torch.Tensor):
             nbytes, elems)
 
 
-def time_kernel(label, m, keep0, thr):
+# the kernel's numbers at each call site timed in this run, by site name,
+# for the kernel table's line
+SITES = {}
+
+
+def time_kernel(label, m, keep0, thr, site=None):
     """Kernel device ms, call ms, plain ms and bound on one input, printed
-    on one line and returned under the kernel table's keys."""
+    on one line and returned under the kernel table's keys (and kept in
+    SITES under `site` with the input's (B, K))."""
     ms, how = device_ms(lambda: suppress(m, keep0, thr))
     call_ms = time_ms(lambda: suppress(m, keep0, thr), 200)
     plain_ms = time_ms(lambda: suppress_reference(m, keep0, thr), 10)
@@ -277,9 +328,12 @@ def time_kernel(label, m, keep0, thr):
           f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({nbytes} bytes); "
           f"library call: none (no single PyTorch op computes greedy "
           f"suppression)", flush=True)
-    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                >= elems / F32_OPS_PER_S else "operations")
+    out = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+               >= elems / F32_OPS_PER_S else "operations")
+    if site:
+        SITES[site] = dict(out, shape=list(keep0.shape))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -708,10 +762,10 @@ def puck_phase(config, max_err):
             raise AssertionError(f"the call sites differ from the run, frame {i}")
     sites = {"tile": time_kernel(
         f"puck per-tile NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}",
-        cand.matrix, cand.keep0, cand.thr)}
+        cand.matrix, cand.keep0, cand.thr, site="puck_tile")}
     sites["merge"] = time_kernel(
         f"puck merge B={mc.keep0.shape[0]} K={mc.keep0.shape[1]}",
-        mc.matrix, mc.keep0, mc.thr)
+        mc.matrix, mc.keep0, mc.thr, site="puck_merge")
 
     # the per-tile top-256 candidate scores of the last batch: bf16 on the
     # card against an f32 CPU run (tolerance 0.05, a bf16 forward's sigmoid
@@ -760,8 +814,9 @@ def puck_phase(config, max_err):
 
 
 def team_phase(config, frames, max_err, track_fps):
-    """Phase 6; returns (kernel launches over classify_frames, max_err).
-    `track_fps` is phase 5's frames/s, printed beside this path's."""
+    """Phase 6; returns (kernel launches over classify_frames, max_err, the
+    detector with the team branch). `track_fps` is phase 5's frames/s,
+    printed beside this path's."""
     t = time.perf_counter()
     vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
                         mode=ProcessingMode.TEAM_CLASSIFICATION,
@@ -896,7 +951,7 @@ def team_phase(config, frames, max_err, track_fps):
     print(f"team_features range: {team_ms:.4f} ms device, {team_launches} "
           f"launches per batch of {BATCH}", flush=True)
     print(json.dumps({"teams": teams}), flush=True)
-    return launches_c, max_err
+    return launches_c, max_err, det
 
 
 def near_best_keypoints(step, model, frames, top: int = 5):
@@ -1020,7 +1075,7 @@ def rink_phase(config, max_err):
           f"halves == the run: True", flush=True)
     sites = {"dual": time_kernel(
         f"dual player branch NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}",
-        cand.matrix, cand.keep0, cand.thr)}
+        cand.matrix, cand.keep0, cand.thr, site="dual")}
 
     # the card's keypoints (bf16) on the last batch's first 2 frames
     # against the same rink branch in f32 on the CPU; the card's set is
@@ -1118,7 +1173,7 @@ def rink_phase(config, max_err):
         raise AssertionError("rink detector keypoints not finite (B, 56, 3)")
     sites["rink_detector"] = time_kernel(
         f"rink detector NMS B={cand_r.keep0.shape[0]} K={cand_r.keep0.shape[1]}",
-        cand_r.matrix, cand_r.keep0, cand_r.thr)
+        cand_r.matrix, cand_r.keep0, cand_r.thr, site="rink_detector")
 
     # the rink branch's ranges on the card: one profiled dual step
     dual.run(frames[-BATCH:])[3].cpu()
@@ -1151,6 +1206,308 @@ def rink_phase(config, max_err):
     }
     print(json.dumps({"rink": rink}), flush=True)
     return launches_d + launches_r, max_err
+
+
+def kernel_on_batch(label, core, model, x, max_err, site=None):
+    """The kernel against the plain suppression on one batch's candidates
+    of `core` (kept sets equal, else it raises); with `site`, its times
+    there. Returns max_err."""
+    with torch.inference_mode():
+        cand = core.candidates(model, torch.as_tensor(x).to("cuda"))
+        keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
+        keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
+    torch.cuda.synchronize()
+    max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
+    same = torch.equal(keep_k, keep_r)
+    print(f"{label} NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}: kept "
+          f"{keep_k.sum(1).tolist()} of {cand.keep0.sum(1).tolist()}; kernel "
+          f"kept set == plain kept set: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{label}: kept sets differ from the plain version")
+    if site:
+        time_kernel(f"{label} NMS B={cand.keep0.shape[0]} K={cand.keep0.shape[1]}",
+                    cand.matrix, cand.keep0, cand.thr, site=site)
+    return max_err
+
+
+def kernels_device_ms(fn, calls: int = 10) -> float:
+    """Device ms per call of fn: the sum of all its CUDA kernels' device
+    time in a torch.profiler trace of `calls` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def robust_teams(clf, feats):
+    """The robust classifier's nearest fitted crop's team of each row of
+    `feats` (its assignment before the outlier gate and the history)."""
+    r = clf.reduce(feats)
+    d2 = ((r[:, None, :] - clf._train_reduced[None]) ** 2).sum(-1)
+    return clf._train_labels[d2.argmin(1)]
+
+
+def cascade_phase(config, frames, det, max_err):
+    """Phase 9; returns (kernel launches over classify_frames, max_err)."""
+    os.environ["HOCKEY_TPU_HEADLESS"] = "1"  # no click UI: interactive demotes
+    # the fit reads frames 0-20 of the scene, 210 crops
+    cfg = dataclasses.replace(config, initialization_stride=1)
+    cpu_net = build_embedder(load_embed_params(), "cpu")
+    cascade, launches = {}, 0
+    for want, flags, cpu_cls in (
+            ("robust", dict(use_segmentation=False), RobustTeamClassifier),
+            ("hybrid", dict(use_segmentation=False, use_robust=False),
+             HybridTeamClassifier)):
+        vp = VideoProcessor(cfg, device="cuda", frame_hw=FRAME_HW,
+                            mode=ProcessingMode.TEAM_CLASSIFICATION,
+                            team_names=("TEAM_A", "TEAM_B"), player_detector=det)
+        tc = vp.team_classifier = TeamClassifier(device="cuda", **flags)
+        first = tc.active_strategy
+        fitted = {}
+        facade_fit = tc.fit
+
+        def timed_fit(crops, positions=None, frame=None, detections=None):
+            t0 = time.perf_counter()
+            facade_fit(crops, positions=positions, frame=frame, detections=detections)
+            fitted.update(s=time.perf_counter() - t0, crops=crops)
+
+        tc.fit = timed_fit
+        t = time.perf_counter()
+        n_crops = vp.fit_teams(iter(frames))
+        fit_s = time.perf_counter() - t
+        print(f"{want}: strategy {first} -> {tc.active_strategy} after fit_teams; "
+              f"{n_crops} crops; fit_teams {fit_s:.3f} s, the facade's fit "
+              f"{fitted['s']:.3f} s (host clock)", flush=True)
+        if tc.active_strategy != want:
+            raise AssertionError(f"the cascade landed on {tc.active_strategy}, "
+                                 f"not {want}")
+        impl = tc._impl
+        suppress.launches = 0
+        results, marks = [], []
+        t = time.perf_counter()
+        for r in vp.classify_frames(iter(frames)):
+            results.append(r)
+            if len(results) % BATCH == 0:
+                marks.append(time.perf_counter())
+        launches_k = suppress.launches
+        launches += launches_k
+        fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
+        print(f"{want}: classify_frames {fps:.2f} frames/s after the first batch; "
+              f"strategy after it: {tc.active_strategy}; {launches_k} kernel "
+              f"launches", flush=True)
+        if tc.active_strategy != want or len(results) != len(frames):
+            raise AssertionError(f"{want} did not classify every frame itself")
+        if launches_k < N_BATCHES:
+            raise AssertionError(f"kernel launched {launches_k} times, < {N_BATCHES}")
+        max_err = kernel_on_batch(f"{want} path", det._track_step.core, det.model,
+                                  frames[-BATCH:], max_err)
+
+        # MobileNetV3 on the card (f32) against the CPU on the last
+        # batch's players, and the teams from either side's features
+        boxes = [r["boxes"][r["classes"] == 0] for r in results[-BATCH:]]
+        crops = np.concatenate([standardize_crops(host_crops(f, b))
+                                for f, b in zip(frames[-BATCH:], boxes)])
+        positions = [p for b in boxes for p in VideoProcessor._positions(b)]
+        z_card = embed(impl.net, torch.from_numpy(crops).cuda()).cpu().numpy()
+        z_cpu = embed(cpu_net, torch.from_numpy(crops)).numpy()
+        cos = (z_card * z_cpu).sum(1) / np.linalg.norm(z_card, axis=1) \
+            / np.linalg.norm(z_cpu, axis=1)
+        embed_err = float(np.abs(z_card - z_cpu).max())
+        cpu_clf = cpu_cls(device="cpu")
+        if want == "robust":
+            f_card = impl.extract_multimodal_features(crops, positions)
+            f_cpu = cpu_clf.extract_multimodal_features(crops, positions)
+            ids_card, ids_cpu = robust_teams(impl, f_card), robust_teams(impl, f_cpu)
+        else:
+            f_card, f_cpu = impl.extract_all_features(crops), cpu_clf.extract_all_features(crops)
+            ids_card, ids_cpu = impl.classify_features(f_card), impl.classify_features(f_cpu)
+        feat_err = float(np.abs(f_card - f_cpu).max())
+        print(f"{want}: MobileNetV3 card f32 vs CPU on {len(crops)} crops: min "
+              f"cosine {cos.min():.7f} (>= 0.9999), max |diff| {embed_err:.3e}; "
+              f"features max |diff| {feat_err:.3e}; team ids equal: "
+              f"{bool((ids_card == ids_cpu).all())}", flush=True)
+        if cos.min() < 0.9999:
+            raise AssertionError("card embeddings disagree with the CPU")
+        if not (ids_card == ids_cpu).all():
+            raise AssertionError("team ids from card and CPU features differ")
+        acc, separable, n_pairs = team_accuracy(results, seed=0)
+        print(f"{want}: team accuracy against the generator's teams {acc:.4f} "
+              f"over {n_pairs} matched players (separable: {separable})", flush=True)
+
+        # the embed's device time for the fit's crops and for one frame's
+        fit_batch = torch.from_numpy(standardize_crops(fitted["crops"])).cuda()
+        frame_batch = torch.from_numpy(crops[:len(boxes[0])]).cuda()
+        ms = {n: (kernels_device_ms(lambda x=x: embed(impl.net, x)),
+                  time_ms(lambda x=x: embed(impl.net, x), 10))
+              for n, x in (("fit", fit_batch), ("frame", frame_batch))}
+        print(f"{want}: embed device ms (profiler, all kernels) / call ms (CUDA "
+              f"events): {len(fit_batch)} crops {ms['fit'][0]:.4f} / "
+              f"{ms['fit'][1]:.4f}; {len(frame_batch)} crops {ms['frame'][0]:.4f} "
+              f"/ {ms['frame'][1]:.4f}", flush=True)
+        cascade[want] = {
+            "strategies": [first, tc.active_strategy],
+            "fit_crops": n_crops, "fit_teams_s": round(fit_s, 3),
+            "facade_fit_s": round(fitted["s"], 3),
+            "frames_per_s_after_first_batch": round(fps, 2),
+            "team_accuracy": round(acc, 4), "matched_players": n_pairs,
+            "embed_min_cosine": float(cos.min()), "embed_max_abs_err": embed_err,
+            "feature_max_abs_err": feat_err,
+            "embed_device_ms": {len(fit_batch): round(ms["fit"][0], 4),
+                                len(frame_batch): round(ms["frame"][0], 4)},
+            "embed_call_ms": {len(fit_batch): round(ms["fit"][1], 4),
+                              len(frame_batch): round(ms["frame"][1], 4)},
+        }
+    print(json.dumps({"cascade": cascade}), flush=True)
+    return launches, max_err
+
+
+def lockstep_and_alone(cfg, det, clips):
+    """The clips through MultiClipProcessor.run_frames with `det`, and each
+    clip alone through a single-clip VideoProcessor with `det`: (per-clip
+    lockstep results, per-clip tracked rows alone, lockstep frames/s over
+    all clips, the same after the first row, kernel launches in lockstep)."""
+    k = len(clips)
+    mp = MultiClipProcessor(config=cfg, mode=ProcessingMode.PLAYER_TRACKING,
+                            player_detector=det, device="cuda",
+                            frame_hw=FRAME_HW, n_clips=k)
+    suppress.launches = 0
+    got = {c: [] for c in range(k)}
+    marks = []
+    t = time.perf_counter()
+    for c, r in mp.run_frames(clips):
+        got[c].append({f: np.copy(v) for f, v in r.items()})
+        if c == k - 1:
+            marks.append(time.perf_counter())
+    launches = suppress.launches
+    fps = k * len(marks) / (marks[-1] - t)
+    fps_after = k * (len(marks) - 1) / (marks[-1] - marks[0])
+    alone = [list(VideoProcessor(cfg, device="cuda", frame_hw=FRAME_HW,
+                                 mode=ProcessingMode.PLAYER_TRACKING,
+                                 player_detector=det).track_frames(iter(clip)))
+             for clip in clips]
+    return got, alone, fps, fps_after, launches
+
+
+def compare_clips(got, alone):
+    """(frames whose ids are equal, frames, max |box diff| px over the
+    frames whose ids are equal)."""
+    same, total, worst = 0, 0, 0.0
+    for c, rows in enumerate(alone):
+        for g, a in zip(got[c], rows, strict=True):
+            total += 1
+            if np.array_equal(g["tracker_ids"], a[3]):
+                same += 1
+                worst = max(worst, float(np.abs(g["boxes"] - a[0]).max(initial=0.0)))
+    return same, total, worst
+
+
+def multiclip_phase(config, det, max_err):
+    """Phase 10; returns (kernel launches over run_frames, max_err)."""
+    k = MULTICLIP_K
+    clips = [synthetic_frames(seed=1 + c, n=2 * BATCH) for c in range(k)]
+    # both runs take the route a single-clip VideoProcessor takes with a
+    # batch of K: detection batches of B = K, then the host ByteTrack
+    cfg = dataclasses.replace(config, use_device_tracker=False, frame_batch=k)
+    got, alone, fps, fps_after, launches_m = lockstep_and_alone(cfg, det, clips)
+    rows = len(got[0])
+    print(f"{k} clips x {rows} frames in lockstep (bf16): {fps:.2f} frames/s "
+          f"over all clips, {fps_after:.2f} after the first row; {launches_m} "
+          f"kernel launches", flush=True)
+    if launches_m != rows or rows != 2 * BATCH:
+        raise AssertionError(f"{launches_m} launches over {rows} rows")
+    tracked = [sum(len(r["tracker_ids"]) for r in got[c]) for c in range(k)]
+    if min(tracked) == 0:
+        raise AssertionError(f"tracked detections per clip {tracked}")
+    max_err = kernel_on_batch("multi-clip row", det.core, det.model,
+                              np.stack([c[-1] for c in clips]), max_err,
+                              site="multiclip")
+    same16, total, worst16 = compare_clips(got, alone)
+    print(f"bf16, each clip in lockstep against the clip alone (same detector, "
+          f"B = {k}): ids equal on {same16} of {total} frames, boxes max |diff| "
+          f"{worst16} px; a bf16 sample's convolutions round by its position "
+          f"in the batch, which differs between the two runs", flush=True)
+    # the equality check: the same runs with the detector in f32
+    det32 = Detector(config.player_model_name, config, frame_hw=FRAME_HW,
+                     device="cuda", dtype=torch.float32)
+    got32, alone32, _, _, _ = lockstep_and_alone(cfg, det32, clips)
+    same32, total32, worst32 = compare_clips(got32, alone32)
+    print(f"f32, the same comparison: ids equal on {same32} of {total32} frames, "
+          f"boxes max |diff| {worst32} px (tolerance {MULTICLIP_BOX_PX})", flush=True)
+    if same32 != total32 or worst32 > MULTICLIP_BOX_PX:
+        raise AssertionError("a clip in lockstep differs from the clip alone")
+    del det32
+    print(json.dumps({"multiclip": {
+        "clips": k, "frames_per_clip": rows,
+        "frames_per_s_all_clips": round(fps, 2),
+        "frames_per_s_after_first_row": round(fps_after, 2),
+        "kernel_launches": launches_m, "tracked_per_clip": tracked,
+        "bf16_frames_ids_equal_alone": [same16, total],
+        "bf16_box_max_abs_diff_alone": worst16,
+        "f32_frames_ids_equal_alone": [same32, total32],
+        "f32_box_max_abs_diff_alone": worst32,
+        "kernel_at_multiclip_site": SITES["multiclip"]}}), flush=True)
+    return launches_m, max_err
+
+
+def session_phase(config, det, max_err):
+    """Phase 11; returns (kernel launches over the saved and the resumed
+    runs, max_err)."""
+    frames = synthetic_frames(seed=0, n=4 * BATCH)
+
+    def processor():
+        return VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                              mode=ProcessingMode.TEAM_CLASSIFICATION,
+                              team_names=("TEAM_A", "TEAM_B"), player_detector=det)
+
+    def run(vp, x):
+        return [{f: np.copy(v) for f, v in r.items()}
+                for r in vp.classify_frames(iter(x))]
+
+    full_vp = processor()
+    full_vp.fit_teams(iter(frames))
+    full = run(full_vp, frames)
+    half = 2 * BATCH
+    saved_vp = processor()
+    saved_vp.fit_teams(iter(frames))
+    suppress.launches = 0
+    first = run(saved_vp, frames[:half])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "run.state")
+        t = time.perf_counter()
+        save_run_state(path, saved_vp, half)
+        save_ms = 1e3 * (time.perf_counter() - t)
+        size = os.path.getsize(path)
+        resumed_vp = processor()
+        t = time.perf_counter()
+        start = load_run_state(path, resumed_vp)
+        load_ms = 1e3 * (time.perf_counter() - t)
+    rest = run(resumed_vp, frames[start:])
+    launches_s = suppress.launches
+    if not (resumed_vp.use_fused_tracker
+            and isinstance(resumed_vp.tracker, DeviceByteTrack)):
+        raise AssertionError("the resumed run did not take the fused tracker")
+    batches = len(frames) // config.resolved_frame_batch(resumed_vp.device)
+    if launches_s != batches:  # one per batch of the fused step
+        raise AssertionError(f"kernel launched {launches_s} times, not {batches}")
+    for f, (g, w) in enumerate(zip(first + rest, full, strict=True)):
+        for key in ("tracker_ids", "team_ids", "boxes"):
+            if not np.array_equal(g[key], w[key]):
+                raise AssertionError(f"frame {f}: {key} after resume differ from "
+                                     "the uninterrupted run")
+    print(f"session: saved at frame {half} ({size} bytes, {save_ms:.2f} ms), "
+          f"loaded ({load_ms:.2f} ms) into a fresh processor; frames {start}-"
+          f"{len(frames) - 1} resumed; tracker ids, team ids and boxes == the "
+          f"uninterrupted run on all {len(frames)} frames: True; {launches_s} "
+          f"kernel launches", flush=True)
+    print(json.dumps({"session": {
+        "frames": len(frames), "saved_at": half, "state_bytes": size,
+        "save_ms": round(save_ms, 2), "load_ms": round(load_ms, 2),
+        "kernel_launches": launches_s}}), flush=True)
+    return launches_s, max_err
 
 
 def main() -> int:
@@ -1188,7 +1545,7 @@ def main() -> int:
         if not torch.equal(got, ref):
             raise AssertionError(f"kernel != plain version on {name}")
     name, m, keep0, thr = cases[1]
-    time_kernel(f"dense case, {name} (random boxes)", m, keep0, thr)
+    time_kernel(f"dense case, {name} (random boxes)", m, keep0, thr, site="dense")
 
     phase("4 main path: YOLOv8x bf16, 1080p -> 736x1280, VideoProcessor.detect_frames")
     t = time.perf_counter()
@@ -1263,7 +1620,7 @@ def main() -> int:
           flush=True)
     b, k = cand.keep0.shape
     main = time_kernel(f"main-path NMS B={b} K={k}", cand.matrix, cand.keep0,
-                       cand.thr)
+                       cand.thr, site="main")
 
     # reference: the same detector in f32 on the CPU (plain suppression),
     # two frames; bf16 on the card must find the same players
@@ -1405,7 +1762,7 @@ def main() -> int:
           "team step through VideoProcessor.classify_frames")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the crop products must be f32")
-    launches_c, max_err = team_phase(config, frames, max_err, track_fps)
+    launches_c, max_err, det_team = team_phase(config, frames, max_err, track_fps)
 
     phase("7 PUCK_DETECTION: YOLOv8s bf16 on 8 tiles of 640 per 1080p frame, "
           "VideoProcessor.puck_frames")
@@ -1415,17 +1772,31 @@ def main() -> int:
           "512), host ByteTrack and calibrator, VideoProcessor.classify_frames")
     launches_r, max_err = rink_phase(config, max_err)
 
-    phase("9 results")
+    phase("9 team cascade: robust, then hybrid (MobileNetV3 f32 on the card), "
+          "headless, fit_teams and classify_frames on phase 6's scene")
+    launches_k, max_err = cascade_phase(config, frames, det_team, max_err)
+
+    phase(f"10 multi-clip: {MULTICLIP_K} clips in lockstep through "
+          f"MultiClipProcessor.run_frames, PLAYER_TRACKING (B = {MULTICLIP_K})")
+    launches_m, max_err = multiclip_phase(config, det, max_err)
+
+    phase("11 session: TEAM_CLASSIFICATION, save_run_state after 2 batches, "
+          "load_run_state, 2 more")
+    launches_s, max_err = session_phase(config, det_team, max_err)
+
+    phase("12 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
-        "launches": launches + launches_t + launches_c + launches_p + launches_r,
+        "launches": (launches + launches_t + launches_c + launches_p + launches_r
+                     + launches_k + launches_m + launches_s),
         "max_abs_err": max_err,
         **main,
         "library_ms": None,
+        "sites": SITES,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

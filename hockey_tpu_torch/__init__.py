@@ -11,9 +11,12 @@ sm_90a CUDA kernel (`ops/nms_kernel.py`, `csrc/nms_suppress.cu`),
 PLAYER_TRACKING (the fused detect + track step with the on-device
 ByteTrack of `tracking/device_tracker.py`, or the host ByteTrack),
 TEAM_CLASSIFICATION, the default mode (the same step with the team
-features of `teams/`, and the segmentation team classifier),
-PUCK_DETECTION (`slicing/`) with the jersey-number OCR (`ocr/`), and the
-rink keypoints and 2D map (`models/dual.py`, `homography/`, `rinkmap/`).
+features of `teams/`, and the whole cascade of team classifiers, with
+MobileNetV3 embeddings and the port's own clusterings),
+PUCK_DETECTION (`slicing/`) with the jersey-number OCR (`ocr/`), the
+rink keypoints and 2D map (`models/dual.py`, `homography/`, `rinkmap/`),
+and the serving entry points: run state and resume (`core/session.py`),
+multi-clip lockstep (`multiclip.py`) and the CLI's metrics and traces.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,5 @@
-"""CLI entry point of the port (the flags of hockey_tpu/cli/main.py that
-the four modes, the rink keypoints and the 2D map use; TEAM_CLASSIFICATION
-is the default, as there).
+"""CLI entry point of the port: the flags of hockey_tpu/cli/main.py, and
+its control flow (:120-215); TEAM_CLASSIFICATION is the default, as there.
 
     python -m hockey_tpu_torch.cli.main --source_path in.mp4 \
         --target_path out.mp4 --headless [--team-names "HOME,AWAY"] \
@@ -8,7 +7,20 @@ is the default, as there).
         [--rink-keypoints] [--show-2d-map] [--calibration PROFILE.json] \
         [--device cuda|cpu] [--conf X] [--annotator box|ellipse|styled] \
         [--checkpoint F] [--rink-checkpoint F] [--puck-checkpoint F] \
-        [--imgsz N] [--frame-batch N] [--limit-frames N]
+        [--imgsz N] [--frame-batch N] [--limit-frames N] \
+        [--save-state F [--save-state-every N]] [--resume F] \
+        [--json-metrics F] [--profile DIR]
+    python -m hockey_tpu_torch.cli.main --sources a.mp4,b.mp4 \
+        --target_path out.mp4 ...      # writes out_0.mp4, out_1.mp4
+
+- `--sources`: the multi-clip mode (multiclip.py), one detection batch
+  per frame row across the clips; the targets are `<stem>_<i><suffix>`.
+- `--save-state` writes the run state (core/session.py) every
+  `--save-state-every` frames and at the end; `--resume` restores one and
+  continues from its frame, without the team fit.
+- `--json-metrics` writes the per-stage timers and counters as JSON;
+  `--profile` writes a torch.profiler Chrome trace (`trace.json`) of the
+  run into a directory.
 """
 
 from __future__ import annotations
@@ -23,8 +35,9 @@ from ..core.config import Config, ProcessingMode
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Hockey Vision Analytics (PyTorch/CUDA port)")
-    p.add_argument("--source_path", type=str, required=True,
-                   help="Path to the source video file.")
+    p.add_argument("--source_path", type=str, default=None,
+                   help="Path to the source video file (required unless "
+                        "--sources is given).")
     p.add_argument("--target_path", type=str, default=None,
                    help="Path to save the output video.")
     p.add_argument("--device", type=str, default="cuda",
@@ -60,16 +73,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "default), ground ellipses, or styled label chips.")
     p.add_argument("--limit-frames", type=int, default=None,
                    help="Stop after N output frames.")
+    p.add_argument("--json-metrics", type=str, default=None,
+                   help="Write per-stage timing/counters JSON here.")
+    p.add_argument("--sources", type=str, default=None,
+                   help="Comma-separated clip list for multi-clip batch "
+                        "mode (one detection batch per frame across clips; "
+                        "overrides --source_path).")
+    p.add_argument("--resume", type=str, default=None,
+                   help="Resume from a run-state file (core/session.py).")
+    p.add_argument("--save-state", type=str, default=None,
+                   help="Write run state here (for later --resume).")
+    p.add_argument("--save-state-every", type=int, default=300,
+                   help="Autosave interval in frames when --save-state set.")
+    p.add_argument("--profile", type=str, default=None,
+                   help="Write a torch.profiler trace to this directory.")
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.headless:  # the team selector takes the names without its UI
-        os.environ["HOCKEY_TPU_HEADLESS"] = "1"
-    if not Path(args.source_path).exists():
-        raise FileNotFoundError(f"Source video not found: {args.source_path}")
-
+def _config(args) -> Config:
     config = Config()
     if args.frame_batch:
         config.frame_batch = args.frame_batch
@@ -78,34 +99,117 @@ def main(argv=None) -> int:
     if args.conf is not None:
         config.detection_confidence = args.conf
     config.annotator_style = args.annotator
+    return config
 
-    from ..pipeline import VideoProcessor, process_video_with_display
+
+def _team_names(args):
+    parts = args.team_names.split(",") if args.team_names else []
+    return (parts[0].strip(), parts[1].strip()) if len(parts) == 2 else None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.headless:  # the team selector takes the names without its UI
+        os.environ["HOCKEY_TPU_HEADLESS"] = "1"
+    if args.sources:
+        return _main_multiclip(args)
+    if not args.source_path:
+        raise SystemExit("--source_path (or --sources) is required")
+    if not Path(args.source_path).exists():
+        raise FileNotFoundError(f"Source video not found: {args.source_path}")
+
+    from ..pipeline import (
+        VideoProcessor,
+        VideoSinkWriter,
+        process_video_with_display,
+    )
+    from ..utils.profiling import device_trace
     from ..video.io import VideoInfo
 
     info = VideoInfo.from_video_path(args.source_path)
-    team_names = None
-    if args.team_names:
-        parts = args.team_names.split(",")
-        if len(parts) == 2:
-            team_names = (parts[0].strip(), parts[1].strip())
     processor = VideoProcessor(
-        config=config,
+        config=_config(args),
         device=args.device,
         mode=ProcessingMode(args.mode),
         frame_hw=(info.height, info.width),
         checkpoint=args.checkpoint,
         puck_checkpoint=args.puck_checkpoint,
-        team_names=team_names,
+        team_names=_team_names(args),
         enable_rink_keypoints=args.rink_keypoints,
         show_2d_map=args.show_2d_map,
         rink_checkpoint=args.rink_checkpoint,
         calibration_profile=args.calibration,
     )
-    n = process_video_with_display(processor, args.source_path,
-                                   args.target_path,
-                                   display=not args.headless,
-                                   limit=args.limit_frames)
+    with device_trace(args.profile):
+        start_frame = 0
+        if args.resume:
+            from ..core.session import load_run_state
+
+            start_frame = load_run_state(args.resume, processor)
+            print(f"Resumed from {args.resume} at frame {start_frame}")
+        if args.resume or args.save_state:
+            import cv2
+
+            from ..core.session import save_run_state
+
+            frames = processor.process_video(
+                args.source_path, start_frame=start_frame,
+                skip_init=bool(args.resume), limit=args.limit_frames)
+            sink = (VideoSinkWriter(args.target_path, info)
+                    if args.target_path else None)
+            n = 0
+            try:
+                for frame in frames:
+                    if sink:
+                        sink.write(frame)
+                    n += 1
+                    if args.save_state and n % args.save_state_every == 0:
+                        save_run_state(args.save_state, processor, start_frame + n)
+                    if not args.headless:
+                        cv2.imshow("Hockey Vision", frame)
+                        if cv2.waitKey(1) & 0xFF == ord("q"):
+                            break
+                if args.save_state:
+                    save_run_state(args.save_state, processor, start_frame + n)
+                    print(f"Run state saved to {args.save_state}")
+            finally:
+                # the mp4 is finished and the windows closed on an
+                # exception or a 'q' too
+                if sink:
+                    sink.close()
+                if not args.headless:
+                    cv2.destroyAllWindows()
+        else:
+            n = process_video_with_display(processor, args.source_path,
+                                           args.target_path,
+                                           display=not args.headless,
+                                           limit=args.limit_frames)
     print(f"Processed {n} frames.")
+    processor.timers.dump_json(args.json_metrics)
+    if args.json_metrics:
+        print(f"Metrics written to {args.json_metrics}")
+    return 0
+
+
+def _main_multiclip(args) -> int:
+    """The multi-clip mode: K clips, one detection batch per frame row."""
+    sources = [s.strip() for s in args.sources.split(",") if s.strip()]
+    for s in sources:
+        if not Path(s).exists():
+            raise FileNotFoundError(f"Source video not found: {s}")
+    from ..multiclip import MultiClipProcessor
+
+    mp = MultiClipProcessor(sources, config=_config(args),
+                            mode=ProcessingMode(args.mode),
+                            team_names=_team_names(args),
+                            checkpoint=args.checkpoint, device=args.device)
+    targets = None
+    if args.target_path:
+        base = Path(args.target_path)
+        targets = [str(base.with_name(f"{base.stem}_{i}{base.suffix}"))
+                   for i in range(len(sources))]
+    counts = mp.run(targets, limit_frames=args.limit_frames)
+    print(f"Processed {counts} frames across {len(sources)} clips.")
     return 0
 
 

@@ -10,7 +10,10 @@ the modes' branches of `process_frame` (:250-363) and `unpack_tracked`
 The numeric part needs no OpenCV: `detect_frames`, `track_frames`,
 `classify_frames` and `puck_frames` turn any iterable of frames into
 per-frame results, and `fit_teams` fits the team classifier on frames.
-`process_video` reads a video, runs the same steps and draws.
+`process_video` reads a video (its batches decoded on a background
+thread, `video/io.py:prefetched`), runs the same steps and draws; it can
+start at a frame without the team fit, to resume a run saved by
+`core/session.py`.
 
 TEAM_CLASSIFICATION takes one of three routes, as in the JAX package:
 - fused: on CUDA with a frame batch above 1, one device step per batch
@@ -74,7 +77,7 @@ from .tracking.bytetrack import ByteTrack
 from .tracking.device_tracker import DeviceByteTrack
 from .ui.team_selector import InteractiveTeamSelector
 from .utils.metrics import StageTimers
-from .video.io import VideoInfo, batched, frame_generator
+from .video.io import VideoInfo, VideoSink, batched, frame_generator, prefetched
 
 _TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
                    ProcessingMode.TEAM_CLASSIFICATION)
@@ -261,12 +264,20 @@ class VideoProcessor:
         with self.timers.stage("keypoints"):
             return self.rink_detector.detect_keypoints_batch(batch)
 
-    def _steps(self, frames: Iterable[np.ndarray]) -> Iterator[Tuple[np.ndarray, Dict]]:
+    def _batches(self, frames: Iterable[np.ndarray], b: int, prefetch: bool):
+        """(batch (b, H, W, 3), true count) of the frames; with `prefetch`
+        and b > 1 they are read and stacked on a background thread
+        (hockey_tpu pipeline.py:406-470)."""
+        batches = batched(iter(frames), b)
+        return prefetched(batches) if prefetch and b > 1 else batches
+
+    def _steps(self, frames: Iterable[np.ndarray], prefetch: bool = False
+               ) -> Iterator[Tuple[np.ndarray, Dict]]:
         """(frame, the keyword arguments of `process_frame` for it), batch
         by batch in the mode's route."""
         b = self._batch()
         teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
-        for batch, n in batched(iter(frames), b):
+        for batch, n in self._batches(frames, b, prefetch):
             if self.use_fused_tracker:
                 with self.timers.stage("detect"):
                     out = self.player_detector.detect_track_batch(
@@ -332,7 +343,7 @@ class VideoProcessor:
         for _ in self._numeric_steps(frames):
             yield self.last_frame_result
 
-    def _puck_steps(self, frames: Iterable[np.ndarray]
+    def _puck_steps(self, frames: Iterable[np.ndarray], prefetch: bool = False
                     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(frame, boxes (n, 4), scores (n,)) of each frame: the sliced
         detector over batches of min(frame batch, 16) frames, or frame by
@@ -345,7 +356,7 @@ class VideoProcessor:
                     boxes, scores = pipe.detect_frame(frame)
                 yield frame, boxes, scores
             return
-        for batch, n in batched(iter(frames), min(b, PUCK_MAX_BATCH)):
+        for batch, n in self._batches(frames, min(b, PUCK_MAX_BATCH), prefetch):
             with self.timers.stage("detect"):
                 boxes, scores, valid = pipe.detect_batch(batch)
             for i in range(n):
@@ -560,26 +571,30 @@ class VideoProcessor:
                 out = self.rink_renderer.overlay(out, rink_map)
         return out
 
-    def process_video(self, source_path: str,
+    def process_video(self, source_path: str, start_frame: int = 0,
+                      skip_init: bool = False,
                       limit: Optional[int] = None) -> Iterator[np.ndarray]:
-        """Annotated frames of a video: in TEAM_CLASSIFICATION the one-time
-        team fit first, then the mode's device step in batches and drawing
-        frame by frame in order."""
-        if self.mode == ProcessingMode.TEAM_CLASSIFICATION:
+        """Annotated frames of a video from `start_frame`, at most `limit`:
+        in TEAM_CLASSIFICATION the one-time team fit first (unless
+        `skip_init`, as when a run resumes from a saved state,
+        core/session.py), then the mode's device step in batches, their
+        frames decoded on a background thread, and drawing frame by frame
+        in order (hockey_tpu pipeline.py:388-470)."""
+        if self.mode == ProcessingMode.TEAM_CLASSIFICATION and not skip_init:
             self.initialize_team_classifier(source_path)
-        frames = frame_generator(source_path, limit=limit)
+        frames = frame_generator(source_path, start=start_frame, limit=limit)
         if self.mode == ProcessingMode.PUCK_DETECTION:
-            for frame, boxes, scores in self._puck_steps(frames):
+            for frame, boxes, scores in self._puck_steps(frames, prefetch=True):
                 with self.timers.stage("annotate"):
                     out = self.puck_pipeline.annotate(frame, boxes, scores)
                 yield out
             return
         if self.mode == ProcessingMode.PLAYER_DETECTION:
-            for batch, n in batched(frames, self._batch()):
+            for batch, n in self._batches(frames, self._batch(), prefetch=True):
                 for i, (det, _) in enumerate(self._detect_batch(batch, n)):
                     yield self.process_frame(batch[i], det)
             return
-        for frame, kw in self._steps(frames):
+        for frame, kw in self._steps(frames, prefetch=True):
             yield self.process_frame(frame, **kw)
 
 
@@ -607,17 +622,15 @@ def process_video_with_display(processor: VideoProcessor, source_path: str,
     of frames written (hockey_tpu pipeline.py process_video_with_display)."""
     import cv2
 
-    from .video.io import VideoSink
-
     n = 0
     sink = None
     try:
         if target_path:
-            sink = VideoSink(target_path,
-                             VideoInfo.from_video_path(source_path)).__enter__()
+            sink = VideoSinkWriter(target_path,
+                                   VideoInfo.from_video_path(source_path))
         for frame in processor.process_video(source_path, limit=limit):
             if sink is not None:
-                sink.write_frame(frame)
+                sink.write(frame)
             n += 1
             if display:
                 cv2.imshow("Hockey Vision", frame)
@@ -625,7 +638,21 @@ def process_video_with_display(processor: VideoProcessor, source_path: str,
                     break
     finally:
         if sink is not None:
-            sink.__exit__()
+            sink.close()
         if display:
             cv2.destroyAllWindows()
     return n
+
+
+class VideoSinkWriter:
+    """An open mp4 writer: `write` each frame, then `close`, which
+    finishes the file (hockey_tpu pipeline.py VideoSinkWriter)."""
+
+    def __init__(self, path: str, info: VideoInfo):
+        self._sink = VideoSink(path, info).__enter__()
+
+    def write(self, frame: np.ndarray) -> None:
+        self._sink.write_frame(frame)
+
+    def close(self) -> None:
+        self._sink.__exit__()

@@ -3,9 +3,10 @@ temporal majority vote. Port of hockey_tpu/teams/base.py.
 
 The JAX package resizes host crops with cv2.resize INTER_LINEAR. The port
 resizes them without OpenCV, by the same bilinear geometry (half-pixel
-centres, edge clamp) in f32 and rounds uint8 input back to the uint8 grid;
-OpenCV's 11-bit fixed-point weights make its uint8 result differ from
-this by at most 1 per value.
+centres, edge clamp: `F.interpolate` bilinear without antialiasing) in f32
+and rounds uint8 input back to the uint8 grid; OpenCV's 11-bit
+fixed-point weights make its uint8 result differ from this by at most 1
+per value.
 """
 
 from __future__ import annotations
@@ -15,8 +16,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from ..ops.letterbox import _resize_matrix
+import torch.nn.functional as F
 
 # Every classifier takes crops of one shape (h, w), the hybrid
 # classifier's MobileNet input (reference team_hybrid.py:33).
@@ -25,14 +25,12 @@ CROP_H, CROP_W = 128, 64
 
 def resize_crop(crop: np.ndarray, out_hw=(CROP_H, CROP_W)) -> np.ndarray:
     """(h, w, C) -> (oh, ow, C) f32 bilinear resize with cv2's INTER_LINEAR
-    geometry (half-pixel centres, edge clamp: the letterbox's matrices);
-    uint8 input is rounded back onto [0, 255] integers, as cv2.resize
-    returns it."""
-    x = np.asarray(crop, np.float32)
-    ah = _resize_matrix(x.shape[0], out_hw[0])
-    aw = _resize_matrix(x.shape[1], out_hw[1])
-    out = np.einsum("rh,hwc->rwc", ah, x)
-    out = np.einsum("kw,rwc->rkc", aw, out)
+    geometry (half-pixel centres, edge clamp; the same two-tap weights as
+    the letterbox's resize matrices, on the CPU); uint8 input is rounded
+    back onto [0, 255] integers, as cv2.resize returns it."""
+    x = torch.from_numpy(np.asarray(crop, np.float32)).permute(2, 0, 1)[None]
+    out = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                        align_corners=False)[0].permute(1, 2, 0).numpy()
     if crop.dtype == np.uint8:
         out = np.clip(np.rint(out), 0, 255)
     return out.astype(np.float32)

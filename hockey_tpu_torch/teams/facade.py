@@ -4,9 +4,11 @@ hockey_tpu/teams/facade.py (reference team.py:37-331).
 - Priority: segmentation > interactive > robust > hybrid > simple, each
   enabled by a use_* flag (all on by default, so segmentation is active).
 - A failed fit or prediction demotes to the next enabled strategy and
-  retries it. The port has segmentation and simple so far: demoting to
-  interactive, robust or hybrid raises NotImplementedError, naming
-  ROADMAP.md item 7, which ports them.
+  retries it: a classifier's exception never ends the video run. After a
+  failed prediction the strategy demoted to is fitted on the arguments of
+  the last `fit` (hockey_tpu facade.py:130-145). The interactive strategy
+  needs the click UI: headless, or without a frame, its fit fails and
+  demotes.
 - The team-name registry, "Team 0" / "Team 1" by default.
 - Labels: 0 = away / white, 1 = home / coloured.
 """
@@ -19,6 +21,9 @@ import numpy as np
 
 from ..core.device import resolve_device
 from .base import host_crops
+from .hybrid import HybridTeamClassifier
+from .interactive import InteractiveTeamClassifier
+from .robust import RobustTeamClassifier
 from .segmentation import SegmentationTeamClassifier
 from .simple import SimpleTeamClassifier
 
@@ -51,6 +56,7 @@ class TeamClassifier:
         self._impl = None
         self._impl_name: Optional[str] = None
         self._activate(self._chain[0])
+        self._fit_args = None
 
     @property
     def active_strategy(self) -> str:
@@ -61,12 +67,14 @@ class TeamClassifier:
             self._impl = SegmentationTeamClassifier(
                 self.device, visualize_segmentation=True,
                 method=self.segmentation_method)
-        elif name == "simple":
-            self._impl = SimpleTeamClassifier(self.device)
+        elif name == "interactive":
+            self._impl = InteractiveTeamClassifier(self.device)
+        elif name == "robust":
+            self._impl = RobustTeamClassifier(self.device)
+        elif name == "hybrid":
+            self._impl = HybridTeamClassifier(self.device)
         else:
-            raise NotImplementedError(
-                f"the {name} team classifier is not ported yet (ROADMAP.md "
-                "item 7, 'The other team classifiers')")
+            self._impl = SimpleTeamClassifier(self.device)
         self._impl_name = name
 
     def _demote(self) -> bool:
@@ -79,10 +87,12 @@ class TeamClassifier:
     def fit(self, crops: List[np.ndarray], positions=None, frame=None,
             detections=None) -> None:
         """Fit the active strategy; on failure demote and fit the next.
-        `frame` and `detections` are for the interactive strategy."""
+        `frame` and `detections` ((boxes, tracker_ids)) are for the
+        interactive strategy."""
+        self._fit_args = (crops, positions, frame, detections)
         while True:
             try:
-                self._impl.fit(crops, positions=positions)
+                self._fit_active(crops, positions, frame, detections)
                 return
             except Exception as e:
                 print(f"{self._impl_name} classifier failed: {e}")
@@ -90,20 +100,42 @@ class TeamClassifier:
                     return
                 print(f"Falling back to {self._impl_name} classifier")
 
+    def _fit_active(self, crops, positions, frame, detections) -> None:
+        if self._impl_name == "interactive":
+            if frame is None or detections is None:
+                raise ValueError("Interactive classifier needs frame and detections")
+            if not self._impl.initialize_from_user_selection(frame, detections):
+                raise RuntimeError("Interactive selection cancelled")
+        elif self._impl_name == "simple":
+            self._impl.fit(crops)
+        else:
+            self._impl.fit(crops, positions=positions)
+
     def predict(self, crops, tracker_ids: Optional[np.ndarray] = None,
                 positions=None) -> np.ndarray:
         if not len(crops):
             return np.array([])
         while True:
             try:
+                if self._impl_name == "robust":
+                    return self._impl.get_team_labels(
+                        self._impl.predict(crops, tracker_ids, positions))
+                if self._impl_name in ("interactive", "hybrid"):
+                    return self._impl.predict(crops, tracker_ids)
                 return self._impl.predict(crops, tracker_ids, positions)
             except Exception as e:
-                # the JAX facade refits the strategy it demotes to; of the
-                # ported ones only simple is reachable, which fits nothing
                 print(f"{self._impl_name} prediction failed: {e}")
                 if not self._demote():
                     raise
                 print(f"Falling back to {self._impl_name} classifier")
+                if self._fit_args is not None and self._impl_name != "simple":
+                    c, p, f, d = self._fit_args
+                    try:  # a refit that fails leaves the strategy unfitted
+                        if self._impl_name != "interactive" or (
+                                f is not None and d is not None):
+                            self._fit_active(c, p, f, d)
+                    except Exception:
+                        pass
 
     def supports_fused_features(self) -> bool:
         """True when the active strategy classifies the fused detect step's

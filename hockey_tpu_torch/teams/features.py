@@ -1,6 +1,7 @@
 """Batched jersey features: port of hockey_tpu/teams/features.py (the
-segmentation classifier's 4-dim feature, its colour-prior masks, the
-simple classifier's statistics and the host GrabCut mask).
+hybrid classifier's 49-dim colour vector, the segmentation classifier's
+4-dim feature, its colour-prior masks, the simple classifier's statistics
+and the host GrabCut mask).
 
 Each function runs over a whole (N, h, w, 3) BGR crop batch at once in
 PyTorch ops, with no host sync, so the detect step can hold it. Layouts
@@ -32,6 +33,37 @@ def _hist(values: torch.Tensor, weights: torch.Tensor, nbins: int,
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-row mean of x (N, P) over the weights mask (N, P) -> (N,)."""
     return (x * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1e-7)
+
+
+def _masked_std(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-row standard deviation of x (N, P) over the weights mask."""
+    mu = _masked_mean(x, mask)
+    var = _masked_mean((x - mu[:, None]) ** 2, mask)
+    return torch.sqrt(torch.clamp(var, min=0.0))
+
+
+def hybrid_color_features(crops: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """(N, h, w, 3) BGR crops and (N, h, w) pixel weights -> (N, 49), the
+    layout of team_hybrid.py:127-138: [H hist 18, S hist 8, V hist 8,
+    HSV mean / 255 x 3, HSV std / 255 x 3, LAB mean / 255 x 3, LAB std / 255
+    x 3, low_sat_ratio (S < 30), high_sat_ratio (S > 100), white_ratio
+    (V > 200 and S < 30)]. All-ones weights are the reference's."""
+    n_crops = crops.shape[0]
+    hsv = bgr_to_hsv(crops).reshape(n_crops, -1, 3)
+    lab = bgr_to_lab(crops).reshape(n_crops, -1, 3)
+    m = masks.reshape(n_crops, -1).float()
+    s, v = hsv[..., 1], hsv[..., 2]
+    return torch.cat([
+        _hist(hsv[..., 0], m, 18, 180.0), _hist(s, m, 8, 256.0),
+        _hist(v, m, 8, 256.0),
+        torch.stack([_masked_mean(hsv[..., i], m) for i in range(3)], 1) / 255.0,
+        torch.stack([_masked_std(hsv[..., i], m) for i in range(3)], 1) / 255.0,
+        torch.stack([_masked_mean(lab[..., i], m) for i in range(3)], 1) / 255.0,
+        torch.stack([_masked_std(lab[..., i], m) for i in range(3)], 1) / 255.0,
+        torch.stack([_masked_mean((s < 30).float(), m),
+                     _masked_mean((s > 100).float(), m),
+                     _masked_mean(((v > 200) & (s < 30)).float(), m)], 1),
+    ], dim=1)
 
 
 def segmentation_features(crops: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

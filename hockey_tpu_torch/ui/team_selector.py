@@ -5,7 +5,8 @@ team_selector.py:8-243).
 user clicks the HOME players, then the AWAY players (a click toggles,
 SPACE goes on, ESC cancels), then types each team's name (ENTER confirms,
 BACKSPACE edits, at most 10 characters). It returns a TeamSelection; the
-pipeline reads only its team names.
+pipeline reads only its team names. `pick_team_examples(frame, boxes)`
+runs the same UI to pick the interactive classifier's example players.
 
 Headless: with `headless_names`, with HOCKEY_TPU_HEADLESS set to anything
 but "" or "0", or with no DISPLAY, it returns at once with the given
@@ -126,3 +127,22 @@ class InteractiveTeamSelector:
                 name = name[:-1]
             elif 32 <= key < 127 and len(name) < max_len:
                 name += chr(key)
+
+
+def pick_team_examples(frame: np.ndarray, boxes: np.ndarray
+                       ) -> Optional[Tuple[List[np.ndarray], List[np.ndarray]]]:
+    """The interactive classifier's example picking in the click UI
+    (reference team_interactive.py:54-132; hockey_tpu team_selector.py:146):
+    (team 0 boxes, team 1 boxes) with at least 2 each, or None when
+    headless or cancelled."""
+    if _headless():
+        return None
+    sel = InteractiveTeamSelector().select_teams(frame, boxes)
+    if sel is None:
+        return None
+    ids = {int(i): b for i, b in enumerate(boxes)}
+    t0 = [ids[i - 1] for i in sel.selected_players.get(0, []) if i - 1 in ids]
+    t1 = [ids[i - 1] for i in sel.selected_players.get(1, []) if i - 1 in ids]
+    if len(t0) < 2 or len(t1) < 2:
+        return None
+    return t0, t1

@@ -78,6 +78,35 @@ def batched(frames: Iterator[np.ndarray], batch: int
         yield np.stack(buf), n
 
 
+def prefetched(generator, depth: int = 2):
+    """Run `generator` on a background thread behind a queue of `depth`
+    items, so that video decode overlaps the device's work; an exception
+    of the generator is raised to the consumer in its turn
+    (hockey_tpu/video/io.py:82)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+
+    def worker():
+        try:
+            for item in generator:
+                q.put(item)
+            q.put(end)
+        except BaseException as e:  # the consumer re-raises it
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
 def batched_frame_generator(path: str, batch: int, limit: Optional[int] = None
                             ) -> Iterator[Tuple[np.ndarray, int]]:
     """Yield (B, H, W, 3) uint8 batches of a video's first `limit` frames

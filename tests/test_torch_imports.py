@@ -3,9 +3,12 @@ the JAX package, builds no kernel through torch.utils.cpp_extension, and
 everything chip_smoke.py imports, the tracker, the PLAYER_TRACKING
 modules with the jersey-number OCR, the team modules of
 TEAM_CLASSIFICATION, the sliced puck detector, the dual step and the
-rink, homography and 2D-map modules among it, also loads without cv2,
-msgpack or sklearn (the GPU machine has none of them); so do
-scripts/torch_e2e_puck.py and scripts/torch_e2e_homography.py."""
+rink, homography and 2D-map modules, the rest of the team cascade
+(MobileNetV3, the port's clusterings, the hybrid, robust and interactive
+classifiers), the run state and the multi-clip mode among it, also loads
+without cv2, msgpack or sklearn (the GPU machine has none of them); so do
+scripts/torch_e2e_puck.py and scripts/torch_e2e_homography.py. Every
+module of the package loads with them blocked."""
 
 import os
 import re
@@ -57,12 +60,31 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.homography.calibrator",
     "hockey_tpu_torch.homography.ransac",
     "hockey_tpu_torch.homography.stabilizer",
-    "hockey_tpu_torch.rinkmap.dimensions", "hockey_tpu_torch.rinkmap.renderer")
+    "hockey_tpu_torch.rinkmap.dimensions", "hockey_tpu_torch.rinkmap.renderer",
+    "hockey_tpu_torch.models.mobilenetv3", "hockey_tpu_torch.teams.cluster",
+    "hockey_tpu_torch.teams.hybrid", "hockey_tpu_torch.teams.robust",
+    "hockey_tpu_torch.teams.interactive", "hockey_tpu_torch.core.session",
+    "hockey_tpu_torch.multiclip", "hockey_tpu_torch.video.io")
+
+# the modules this slice added: each loads alone with the imports blocked
+SLICE_MODULES = (
+    "hockey_tpu_torch.models.mobilenetv3", "hockey_tpu_torch.teams.cluster",
+    "hockey_tpu_torch.teams.hybrid", "hockey_tpu_torch.teams.robust",
+    "hockey_tpu_torch.teams.interactive", "hockey_tpu_torch.core.session",
+    "hockey_tpu_torch.multiclip", "hockey_tpu_torch.utils.profiling",
+    "hockey_tpu_torch.annotate.manager", "hockey_tpu_torch.models.manager")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
 missing = [m for m in {SMOKE_MODULES!r} if m not in sys.modules]
 assert not missing, missing
+print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
+"""
+
+_IMPORT_EACH = f"""
+import importlib
+for m in {SLICE_MODULES!r}:
+    importlib.import_module(m)
 print(len([m for m in sys.modules if m.startswith("hockey_tpu_torch")]))
 """
 
@@ -83,6 +105,7 @@ _BLOCKED = ("jax", "flax", "optax", "hockey_tpu", "cv2", "msgpack", "sklearn")
 CASES = {
     "package_without_jax": (_BLOCKED, _IMPORT_PACKAGE),
     "chip_smoke_closure": (_BLOCKED, _IMPORT_SMOKE),
+    "slice_modules": (_BLOCKED, _IMPORT_EACH),
     "puck_harness": (_BLOCKED, _IMPORT_HARNESS.format("torch_e2e_puck")),
     "homography_harness": (_BLOCKED,
                            _IMPORT_HARNESS.format("torch_e2e_homography")),

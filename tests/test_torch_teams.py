@@ -364,19 +364,20 @@ def test_facade_names_and_demotion(player_crops, monkeypatch):
     clf.set_team_names({0: "TOR", 1: "DET"})
     assert (clf.get_team_name(0), clf.get_team_name(1)) == ("TOR", "DET")
 
-    # a failed fit demotes to interactive, which the port does not have yet
+    # a failed fit demotes down the cascade, as in the JAX facade:
+    # interactive needs a frame, robust crops of 50 px, hybrid fits these
     def broken(*a, **k):
         raise RuntimeError("segmentation broke")
 
     monkeypatch.setattr(clf._impl, "fit", broken)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        clf.fit(player_crops[0])
-    for flags in ({"use_segmentation": False},
-                  {"use_segmentation": False, "use_interactive": False},
-                  {"use_segmentation": False, "use_interactive": False,
-                   "use_robust": False}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TeamClassifier(device="cpu", **flags)
+    clf.fit(player_crops[0])
+    assert clf.active_strategy == "hybrid"
+    for flags, first in (({"use_segmentation": False}, "interactive"),
+                         ({"use_segmentation": False, "use_interactive": False},
+                          "robust"),
+                         ({"use_segmentation": False, "use_interactive": False,
+                           "use_robust": False}, "hybrid")):
+        assert TeamClassifier(device="cpu", **flags).active_strategy == first
     # segmentation alone demotes to simple, which the port has
     only = TeamClassifier(device="cpu", use_interactive=False, use_robust=False,
                           use_hybrid=False)

@@ -121,7 +121,21 @@ Phases, each announced on its own line with the elapsed seconds:
    saved with `save_run_state` after 2 batches and resumed with
    `load_run_state` in a fresh processor must give the uninterrupted
    run's tracker ids, team ids and boxes on every frame;
-12. the kernel table as one JSON line (every site timed in this run under
+12. validation: square scenes drawn in numpy (VAL_IMAGES images of
+   `_player` figures at 640 with their boxes, VAL_RINK_IMAGES rink views
+   at 512 through known homographies with their projected keypoints),
+   through `evaluate_detector` with the shipped player Detector at conf
+   0.001, `InTrainingEvaluator` (K = 384, max_det 96) on the same images
+   with the unfused model, and `InTrainingPoseEvaluator` (K = 64, max_det
+   8) with the unfused pose model: two batches of 8 each, the second
+   padded, so exactly 2 kernel launches each; bf16, then the same in f32
+   on the card, mAP50 and PCK within VAL_TOL of each other; the
+   evaluators must leave the caller's model unchanged; the kernel at each
+   of the three sites (`val`, `train_eval`, `pose_eval`) on the padded
+   last batch keeps the plain suppression's set, with its times there;
+   it prints images/s, mAP50, mAP50-95, PCK and the mean keypoint error
+   as one JSON line;
+13. the kernel table as one JSON line (every site timed in this run under
    `sites`), then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
@@ -185,7 +199,10 @@ from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
 )
 from hockey_tpu_torch.ops import assignment  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
-from hockey_tpu_torch.rinkmap.dimensions import NHL  # noqa: E402
+from hockey_tpu_torch.rinkmap.dimensions import (  # noqa: E402
+    NHL,
+    default_keypoint_positions,
+)
 from hockey_tpu_torch.rinkmap.renderer import bottom_center_anchors  # noqa: E402
 from hockey_tpu_torch.slicing.sahi import MERGE_MAX_DET, SlicedDetector  # noqa: E402
 from hockey_tpu_torch.teams.base import host_crops, standardize_crops  # noqa: E402
@@ -197,6 +214,14 @@ from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
     init_state,
     tracker_scan,
+)
+from hockey_tpu_torch.models.yolov8 import MODEL_ZOO  # noqa: E402
+from hockey_tpu_torch.train.data import pad_targets  # noqa: E402
+from hockey_tpu_torch.train.eval import (  # noqa: E402
+    InTrainingEvaluator,
+    InTrainingPoseEvaluator,
+    evaluate_detector,
+    inference_copy,
 )
 
 FRAME_HW = (1080, 1920)
@@ -234,6 +259,14 @@ SCENE_KPTS, SCENE_H_FT = 8, 25.0
 # the CPU anchors a card keypoint set may stand for: the 5 best, within
 # this score of the best (bf16 can swap near-tied anchors)
 NEAR_TIE = 0.01
+# phase 12: the square scenes' sizes (the shipped player model's and the
+# pose model's validation sizes), their image counts (the player set
+# fills one batch of 8 and pads the second, the rink set likewise), and
+# the largest gap of mAP50 and PCK in bf16 from the same evaluation with
+# the models in f32 on the card
+VAL_PLAYER_SIZE, VAL_RINK_SIZE = 640, 512
+VAL_IMAGES, VAL_RINK_IMAGES = 14, 12
+VAL_TOL = 0.02
 
 
 def phase(name: str) -> None:
@@ -422,17 +455,18 @@ def rink_homography() -> np.ndarray:
     return dlt_homography(src, np.array(RINK_CORNERS_PX))
 
 
-def rink_base() -> np.ndarray:
-    """(1080, 1920, 3) uint8 BGR: an NHL sheet seen through
-    `rink_homography`, marked in numpy by the rink point under each pixel:
+def rink_base(hw=FRAME_HW, hom=None) -> np.ndarray:
+    """(h, w, 3) uint8 BGR, by default (1080, 1920): an NHL sheet seen
+    through `hom` (default `rink_homography`), marked in numpy by the rink
+    point under each pixel:
     ice, the boards' kickplate and pale boards (a rounded rectangle, 28-ft
     corners), the crowd beyond, the red centre line and blue lines (1 ft
     wide), the goal lines (4 in), the centre and end-zone faceoff circles
     (15 ft, 3-in rings) and the faceoff spots (1-ft radius)."""
     d = NHL
-    h, w = FRAME_HW
+    h, w = hw
     v, u = np.mgrid[0:h, 0:w]
-    pts = project(np.linalg.inv(rink_homography()),
+    pts = project(np.linalg.inv(rink_homography() if hom is None else hom),
                   np.stack([u.ravel() + 0.5, v.ravel() + 0.5], 1))
     x, y = pts[:, 0].reshape(h, w), pts[:, 1].reshape(h, w)
     r = d.corner_radius
@@ -487,6 +521,65 @@ def puck_scene(seed: int, n: int) -> np.ndarray:
     for f, (x, y) in zip(out, puck_path(n)):
         _ellipse(f, x, y, 11, 7, (20, 18, 18))
     return out
+
+
+def square_players(seed: int, n: int, s: int = VAL_PLAYER_SIZE,
+                   players: int = 7):
+    """(frames (n, s, s, 3) uint8 BGR, boxes [(P, 4)]): `_player` figures
+    on a white rink with a red centre line, each frame's own players (90
+    to 200 px tall, drawn far to near), and each figure's box, the extent
+    of its ellipses clipped to the frame."""
+    rng = np.random.default_rng(seed)
+    frames, boxes = np.empty((n, s, s, 3), np.uint8), []
+    for t in range(n):
+        f = np.full((s, s, 3), 228, np.uint8)
+        f[..., 0] = 236
+        f[:, s // 2 - 4:s // 2 + 4] = (40, 40, 200)
+        foot = rng.uniform([60, 0.3 * s], [s - 60, s - 10], (players, 2))
+        hpx = rng.uniform(90, 200, players)
+        b = []
+        for j in np.argsort(foot[:, 1]):
+            (fx, fy), hj = foot[j], hpx[j]
+            _player(f, fx, fy, hj, *((200, 160, 40), (40, 40, 40)) if j % 2
+                    else ((30, 30, 200), (230, 230, 230)))
+            half = 0.68 * 0.42 * hj
+            b.append(np.clip([fx - half, fy - 0.98 * hj, fx + half,
+                              fy + 0.01 * hj], 0, s))
+        frames[t] = f
+        boxes.append(np.asarray(b, np.float32))
+    return frames, boxes
+
+
+def square_rink(seed: int, n: int, s: int = VAL_RINK_SIZE):
+    """(frames (n, s, s, 3) uint8 BGR, keypoints (n, 56, 3)): `rink_base`
+    through a known homography per frame (a camera above the near boards,
+    its corners jittered by up to 4% of the frame), and the 56 rink
+    keypoints projected through it, visible (1) inside the frame."""
+    rng = np.random.default_rng(seed)
+    src = np.array([[10.0, 0.0], [190.0, 0.0], [10.0, 85.0], [190.0, 85.0]])
+    base = np.array([[0.12, 0.22], [0.88, 0.22], [-0.08, 0.86], [1.08, 0.86]]) * s
+    table = default_keypoint_positions()
+    frames, kpts = np.empty((n, s, s, 3), np.uint8), np.zeros((n, 56, 3), np.float32)
+    for t in range(n):
+        hom = dlt_homography(src, base + rng.uniform(-0.04, 0.04, (4, 2)) * s)
+        frames[t] = rink_base((s, s), hom)
+        p = project(hom, table)
+        kpts[t, :, :2] = p
+        kpts[t, :, 2] = (p >= 0).all(1) & (p < s).all(1)
+    return frames, kpts
+
+
+class Items:
+    """A validation dataset over a list of items (train/data.py's keys)."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def load(self, i):
+        return self.items[i]
 
 
 # --------------------------------------------------------------------------
@@ -1510,6 +1603,102 @@ def session_phase(config, det, max_err):
     return launches_s, max_err
 
 
+def validation_phase(config, max_err):
+    """Phase 12; returns (kernel launches over the three evaluations,
+    max_err)."""
+    s, rs = VAL_PLAYER_SIZE, VAL_RINK_SIZE
+    frames, boxes = square_players(seed=5, n=VAL_IMAGES, s=s)
+    players = Items([dict(zip(("boxes", "classes", "mask"), pad_targets(
+        b, np.zeros(len(b), np.int32))), images=f.astype(np.float32) / 255.0)
+        for f, b in zip(frames, boxes)])
+    rframes, rkpts = square_rink(seed=6, n=VAL_RINK_IMAGES, s=rs)
+    rink = Items([{"images": f.astype(np.float32) / 255.0, "keypoints": k[None]}
+                  for f, k in zip(rframes, rkpts)])
+    pad = np.concatenate([frames[BATCH:], np.repeat(
+        frames[-1:], 2 * BATCH - VAL_IMAGES, 0)])         # the padded tail
+    rpad = np.concatenate([rframes[BATCH:], np.repeat(
+        rframes[-1:], 2 * BATCH - VAL_RINK_IMAGES, 0)])
+    cfg, rcfg = MODEL_ZOO[config.player_model_name], MODEL_ZOO[config.hockey_model_name]
+    unfused = build_model(cfg, load_params(shipped_weights_path(
+        config.player_model_name))).to("cuda")
+    runfused = build_model(rcfg, load_params(shipped_weights_path(
+        config.hockey_model_name))).to("cuda")
+
+    def run(fn, n):
+        """(metrics, kernel launches, images/s) of a first run of fn, and
+        images/s of a second."""
+        suppress.launches = 0
+        t = time.perf_counter()
+        m = fn()
+        torch.cuda.synchronize()
+        cold, launches = n / (time.perf_counter() - t), suppress.launches
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return m, launches, cold, n / (time.perf_counter() - t)
+
+    out, launches_v = {}, 0
+    idx = range(VAL_IMAGES)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        det = Detector(config.player_model_name, config, frame_hw=(s, s), imgsz=s,
+                       conf=0.001, device="cuda", dtype=dtype)
+        tev = InTrainingEvaluator(cfg, s, device="cuda", dtype=dtype)
+        pev = InTrainingPoseEvaluator(rcfg, rs, device="cuda", dtype=dtype)
+        before = {k: v.clone() for k, v in unfused.state_dict().items()}
+        res = {"val": run(lambda: evaluate_detector(det, players, idx), VAL_IMAGES),
+               "train_eval": run(lambda: tev.evaluate(unfused, players, idx),
+                                 VAL_IMAGES),
+               "pose_eval": run(lambda: pev.evaluate(runfused, rink,
+                                                     range(VAL_RINK_IMAGES)),
+                                VAL_RINK_IMAGES)}
+        after = unfused.state_dict()
+        if not (after.keys() == before.keys() and any(".bn." in k for k in after)
+                and all(torch.equal(before[k], after[k]) for k in before)):
+            raise AssertionError("an evaluator changed the caller's model")
+        for site, (m, n, cold, warm) in res.items():
+            if n != 2:  # one launch per batch of 8, the tail padded
+                raise AssertionError(f"{site} ({tag}): {n} kernel launches, not 2")
+            launches_v += n if tag == "bf16" else 0
+            out.setdefault(site, {})[tag] = dict(  # no ground truth: None
+                {k: round(v, 4) if np.isfinite(v) else None for k, v in m.items()},
+                images_per_s_first_run=round(cold, 2), images_per_s=round(warm, 2))
+        print(f"validation {tag}: " + "; ".join(
+            f"{site} {out[site][tag]}" for site in res), flush=True)
+        if tag == "bf16":
+            # the kernel against the plain suppression on each site's last
+            # (padded) batch, and its times there
+            with torch.inference_mode():
+                cand = det.core.candidates(det.model, torch.as_tensor(pad).cuda())
+            out["val_candidates_above_conf"] = cand.keep0.sum(1).tolist()
+            max_err = kernel_on_batch("val (evaluate_detector, conf 0.001)",
+                                      det.core, det.model, pad, max_err, site="val")
+            max_err = kernel_on_batch("train_eval (InTrainingEvaluator)", tev.core,
+                                      inference_copy(unfused, tev.device, dtype),
+                                      pad, max_err, site="train_eval")
+            max_err = kernel_on_batch("pose_eval (InTrainingPoseEvaluator)", pev.core,
+                                      inference_copy(runfused, pev.device, dtype),
+                                      rpad, max_err, site="pose_eval")
+            shapes = [SITES[k]["shape"] for k in ("val", "train_eval", "pose_eval")]
+            if shapes != [[BATCH, 256], [BATCH, 384], [BATCH, 64]]:
+                raise AssertionError(f"site shapes {shapes}")
+        del det, tev, pev
+    gap = {site: round(abs(out[site]["bf16"][k] - out[site]["f32"][k]), 6)
+           for site, k in (("val", "mAP50"), ("train_eval", "mAP50"),
+                           ("pose_eval", "pck"))}
+    print(f"bf16 against f32 on the card: |gap| {gap} (tolerance {VAL_TOL}); "
+          f"mean keypoint error bf16 {out['pose_eval']['bf16']['mean_kpt_error_px']} "
+          f"px, f32 {out['pose_eval']['f32']['mean_kpt_error_px']} px", flush=True)
+    if max(gap.values()) > VAL_TOL:
+        raise AssertionError("bf16 validation disagrees with f32")
+    for site, k in (("val", "mAP50"), ("train_eval", "mAP50"), ("pose_eval", "pck")):
+        if not out[site]["f32"][k] > 0.1:  # a box or keypoint un-mapping fault
+            raise AssertionError(f"{site}: {k} {out[site]['f32'][k]}")
+    out.update(bf16_f32_gap=gap, kernel_launches=launches_v,
+               kernel_at_sites={k: SITES[k] for k in ("val", "train_eval", "pose_eval")})
+    print(json.dumps({"validation": out}), flush=True)
+    return launches_v, max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1784,7 +1973,13 @@ def main() -> int:
           "load_run_state, 2 more")
     launches_s, max_err = session_phase(config, det_team, max_err)
 
-    phase("12 results")
+    phase(f"12 validation: evaluate_detector ({VAL_IMAGES} images at "
+          f"{VAL_PLAYER_SIZE}, conf 0.001), InTrainingEvaluator, "
+          f"InTrainingPoseEvaluator ({VAL_RINK_IMAGES} rink views at "
+          f"{VAL_RINK_SIZE}), bf16 and f32")
+    launches_v, max_err = validation_phase(config, max_err)
+
+    phase("13 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
@@ -1792,7 +1987,7 @@ def main() -> int:
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
         "launches": (launches + launches_t + launches_c + launches_p + launches_r
-                     + launches_k + launches_m + launches_s),
+                     + launches_k + launches_m + launches_s + launches_v),
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

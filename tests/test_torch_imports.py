@@ -7,8 +7,11 @@ rink, homography and 2D-map modules, the rest of the team cascade
 (MobileNetV3, the port's clusterings, the hybrid, robust and interactive
 classifiers), the run state and the multi-clip mode among it, also loads
 without cv2, msgpack or sklearn (the GPU machine has none of them); so do
-scripts/torch_e2e_puck.py and scripts/torch_e2e_homography.py. Every
-module of the package loads with them blocked."""
+the held-out validation modules of train/ (the metrics and in-training
+evaluators, the dataset readers, the corruptions and the val CLI) and
+scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
+scripts/torch_robustness.py. Every module of the package loads with them
+blocked."""
 
 import os
 import re
@@ -64,15 +67,19 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.models.mobilenetv3", "hockey_tpu_torch.teams.cluster",
     "hockey_tpu_torch.teams.hybrid", "hockey_tpu_torch.teams.robust",
     "hockey_tpu_torch.teams.interactive", "hockey_tpu_torch.core.session",
-    "hockey_tpu_torch.multiclip", "hockey_tpu_torch.video.io")
+    "hockey_tpu_torch.multiclip", "hockey_tpu_torch.video.io",
+    "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data")
 
-# the modules this slice added: each loads alone with the imports blocked
+# the modules of the later slices: each loads alone with the imports blocked
 SLICE_MODULES = (
     "hockey_tpu_torch.models.mobilenetv3", "hockey_tpu_torch.teams.cluster",
     "hockey_tpu_torch.teams.hybrid", "hockey_tpu_torch.teams.robust",
     "hockey_tpu_torch.teams.interactive", "hockey_tpu_torch.core.session",
     "hockey_tpu_torch.multiclip", "hockey_tpu_torch.utils.profiling",
-    "hockey_tpu_torch.annotate.manager", "hockey_tpu_torch.models.manager")
+    "hockey_tpu_torch.annotate.manager", "hockey_tpu_torch.models.manager",
+    # held-out validation
+    "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data",
+    "hockey_tpu_torch.train.corruptions", "hockey_tpu_torch.train.val")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
@@ -109,6 +116,8 @@ CASES = {
     "puck_harness": (_BLOCKED, _IMPORT_HARNESS.format("torch_e2e_puck")),
     "homography_harness": (_BLOCKED,
                            _IMPORT_HARNESS.format("torch_e2e_homography")),
+    "robustness_harness": (_BLOCKED,
+                           _IMPORT_HARNESS.format("torch_robustness")),
 }
 
 
@@ -135,6 +144,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "torch_e2e_puck.py")
     yield os.path.join(ROOT, "scripts", "torch_e2e_homography.py")
+    yield os.path.join(ROOT, "scripts", "torch_robustness.py")
 
 
 def test_sources_name_no_forbidden_import():

@@ -135,7 +135,38 @@ Phases, each announced on its own line with the elapsed seconds:
    last batch keeps the plain suppression's set, with its times there;
    it prints images/s, mAP50, mAP50-95, PCK and the mean keypoint error
    as one JSON line;
-13. the kernel table as one JSON line (every site timed in this run under
+13. training, the slice's path: (a) one train step of the shipped
+   YOLOv8s (puck) at 640, batch 2, in f32 on the card (TF32 off for
+   cuDNN and matmul) against the same step on the CPU: each loss
+   component within TRAIN_LOSS_RTOL, every gradient's cosine at least
+   TRAIN_GRAD_COS, the BN batch statistics within TRAIN_BN_TOL; (b)
+   `hockey_tpu_torch.train.loop` (`run`, the body of `main`) on YOLOv8x,
+   640, batch 16, bf16, from the shipped weights, on a pool of
+   TRAIN_POOL numpy-drawn square scenes: TRAIN_STEPS_DEVICE steps of
+   `--device-data` (mosaic 1.0, mixup 0.15) and TRAIN_STEPS_HOST of the
+   host path, each with `--ema 0.999`, `--precise-bn 2` and
+   `--val-every` on TRAIN_VAL held-out scenes; every loss finite, no step
+   skipped, fg anchors on every step, parameters and running stats
+   changed, the checkpoint equal to the EMA weights (precise-BN replaces
+   its running statistics), exactly 2 kernel launches per validation, the
+   kernel's kept set equal to the plain suppression's at the evaluator's
+   site, and held-out mAP50 after the steps no lower than before them by
+   more than TRAIN_MAP_DROP on each path: the EMA model each run ends
+   with, scored with its own running statistics, against the shipped
+   model with its shipped ones, by the same evaluator. The loop's own
+   last validation (precise-BN on the pool's first 16 clean images, then
+   the evaluator) is printed beside it and not gated: precise-BN on these
+   flat drawn scenes lowers the shipped model's score in the JAX package
+   too (scripts/jax_precise_bn_witness.py); (c) a cold `init_params` YOLOv8n at 320, batch 16,
+   LEARN_STEPS steps on one batch of the square scenes, then precise-BN,
+   must detect at least half of that batch's boxes at IoU 0.25
+   (tests/test_train.py:165-208); (d) the shipped YOLOv8s-pose at 512,
+   bf16, a few `--device-data` steps on `square_rink` views with finite
+   keypoint losses and the pose evaluator's kept set equal to the plain
+   one. It prints train-step ms and images/s (device-data against host),
+   peak memory, the kernel's launches and times at both sites and the
+   phase's seconds as one JSON line;
+14. the kernel table as one JSON line (every site timed in this run under
    `sites`), then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
@@ -145,6 +176,7 @@ hockey_tpu_torch package beside it, it exits non-zero and prints no result.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -170,6 +202,7 @@ from hockey_tpu_torch.homography.keypoints import (  # noqa: E402
 from hockey_tpu_torch.homography.stabilizer import homography_distance  # noqa: E402
 from hockey_tpu_torch.models.checkpoint import load_params, shipped_weights_path  # noqa: E402
 from hockey_tpu_torch.models.detector import (  # noqa: E402
+    DetectCore,
     Detector,
     HostDetections,
     best_keypoints,
@@ -177,16 +210,19 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     tracker_inputs,
 )
 from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
-from hockey_tpu_torch.models.layers import fuse_for_inference  # noqa: E402
+from hockey_tpu_torch.models.layers import fuse_for_inference, trainable  # noqa: E402
 from hockey_tpu_torch.models.mobilenetv3 import build_embedder, embed  # noqa: E402
 from hockey_tpu_torch.models.mobilenetv3 import \
     load_default_params as load_embed_params  # noqa: E402
 from hockey_tpu_torch.multiclip import MultiClipProcessor  # noqa: E402
 from hockey_tpu_torch.models.yolov8 import (  # noqa: E402
+    YoloConfig,
     build_model,
     decode_boxes,
     decode_keypoints,
     forward_raw,
+    init_params,
+    params_to_jax,
 )
 from hockey_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
 from hockey_tpu_torch.ocr.digits import DigitNet, load_default_params  # noqa: E402
@@ -216,7 +252,16 @@ from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     tracker_scan,
 )
 from hockey_tpu_torch.models.yolov8 import MODEL_ZOO  # noqa: E402
-from hockey_tpu_torch.train.data import pad_targets  # noqa: E402
+from hockey_tpu_torch.models.checkpoint import flatten_tree  # noqa: E402
+from hockey_tpu_torch.train import loop as train_loop  # noqa: E402
+from hockey_tpu_torch.train.data import PoolDataset, pad_targets  # noqa: E402
+from hockey_tpu_torch.train.losses import detection_loss  # noqa: E402
+from hockey_tpu_torch.train.trainer import (  # noqa: E402
+    TrainConfig,
+    Trainer,
+    make_bn_stats_fn,
+    precise_bn,
+)
 from hockey_tpu_torch.train.eval import (  # noqa: E402
     InTrainingEvaluator,
     InTrainingPoseEvaluator,
@@ -267,6 +312,20 @@ NEAR_TIE = 0.01
 VAL_PLAYER_SIZE, VAL_RINK_SIZE = 640, 512
 VAL_IMAGES, VAL_RINK_IMAGES = 14, 12
 VAL_TOL = 0.02
+# phase 13. (a): the card's f32 step (TF32 off) against the CPU's on the
+# same weights and batch: each loss component within TRAIN_LOSS_RTOL
+# relative, every gradient's cosine at least TRAIN_GRAD_COS, the BN batch
+# statistics within TRAIN_BN_TOL of each vector's largest magnitude (at
+# least 1): two f32 convolution libraries summing in other orders (the
+# CPU tests measure 1e-4 on the loss at 64 px, tests/test_torch_train_step.py).
+# (b): pool sizes, steps of each path, the learning rate (a fine-tune of
+# the shipped weights) and the largest drop of held-out mAP50 the steps
+# may cause. (c): steps of the cold overfit
+TRAIN_LOSS_RTOL, TRAIN_GRAD_COS, TRAIN_BN_TOL = 1e-3, 0.9999, 1e-3
+TRAIN_POOL, TRAIN_VAL = 32, 16
+TRAIN_STEPS_DEVICE, TRAIN_STEPS_HOST, TRAIN_LR = 6, 2, 0.001
+TRAIN_MAP_DROP = 0.1
+LEARN_SIZE, LEARN_STEPS = 320, 120
 
 
 def phase(name: str) -> None:
@@ -524,11 +583,11 @@ def puck_scene(seed: int, n: int) -> np.ndarray:
 
 
 def square_players(seed: int, n: int, s: int = VAL_PLAYER_SIZE,
-                   players: int = 7):
+                   players: int = 7, heights=(90, 200)):
     """(frames (n, s, s, 3) uint8 BGR, boxes [(P, 4)]): `_player` figures
-    on a white rink with a red centre line, each frame's own players (90
-    to 200 px tall, drawn far to near), and each figure's box, the extent
-    of its ellipses clipped to the frame."""
+    on a white rink with a red centre line, each frame's own players
+    (`heights` px tall, drawn far to near), and each figure's box, the
+    extent of its ellipses clipped to the frame."""
     rng = np.random.default_rng(seed)
     frames, boxes = np.empty((n, s, s, 3), np.uint8), []
     for t in range(n):
@@ -536,7 +595,7 @@ def square_players(seed: int, n: int, s: int = VAL_PLAYER_SIZE,
         f[..., 0] = 236
         f[:, s // 2 - 4:s // 2 + 4] = (40, 40, 200)
         foot = rng.uniform([60, 0.3 * s], [s - 60, s - 10], (players, 2))
-        hpx = rng.uniform(90, 200, players)
+        hpx = rng.uniform(*heights, players)
         b = []
         for j in np.argsort(foot[:, 1]):
             (fx, fy), hj = foot[j], hpx[j]
@@ -1699,6 +1758,301 @@ def validation_phase(config, max_err):
     return launches_v, max_err
 
 
+# --------------------------------------------------------------------------
+# phase 13: training
+
+def write_pool(path, frames, boxes, keypoints=None):
+    """A pool .npz in the `save_cache` format (class 0 for every box)."""
+    counts = np.asarray([len(b) for b in boxes], np.int32)
+    m = int(counts.max())
+    bx = np.zeros((len(frames), m, 4), np.float32)
+    for i, b in enumerate(boxes):
+        bx[i, :len(b)] = b
+    extra = {} if keypoints is None else {"keypoints": keypoints}
+    np.savez(path, images=frames, boxes=bx, classes=np.zeros(bx.shape[:2], np.int32),
+             counts=counts, **extra)
+
+
+def rink_boxes(kpts, s):
+    """Each rink view's box: the extent of its visible keypoints
+    (hockey_tpu data.py SyntheticRinkDataset)."""
+    out = []
+    for k in kpts:
+        v = k[k[:, 2] > 0, :2]
+        out.append(np.asarray([[max(v[:, 0].min(), 0), max(v[:, 1].min(), 0),
+                                min(v[:, 0].max(), s - 1), min(v[:, 1].max(), s - 1)]],
+                              np.float32))
+    return out
+
+
+def batch_of(frames, boxes, device):
+    rows = [pad_targets(b, np.zeros(len(b), np.int32)) for b in boxes]
+    return {"images": torch.from_numpy(frames.astype(np.float32) / 255.0).to(device),
+            **{k: torch.from_numpy(np.stack([r[j] for r in rows])).to(device)
+               for j, k in enumerate(("boxes", "classes", "mask"))}}
+
+
+def step_grads(cfg, tree, batch, device):
+    """(loss metrics, gradients by name, BN batch statistics by path) of
+    one f32 train-step forward and backward on `device`."""
+    model = trainable(build_model(cfg, tree)).to(device)
+    stats = []
+    loss, m = detection_loss(forward_raw(model, batch["images"], stats), batch,
+                             cfg, batch["images"].shape[1])
+    loss.backward()
+    return ({k: float(v.detach()) for k, v in m.items()},
+            {n: p.grad.detach().cpu().flatten() for n, p in model.named_parameters()},
+            {p: torch.cat([mu, var]).cpu() for p, mu, var in stats})
+
+
+def card_against_cpu():
+    """(a): the card's f32 step against the CPU's."""
+    name = "hockey-puck-detection"
+    cfg, tree = MODEL_ZOO[name], load_params(shipped_weights_path(name))
+    frames, boxes = square_players(seed=7, n=2, s=640)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t = time.perf_counter()
+        card = step_grads(cfg, tree, batch_of(frames, boxes, "cuda"), "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = step_grads(cfg, tree, batch_of(frames, boxes, "cpu"), "cpu")
+        cpu_s = time.perf_counter() - t
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    rel = {k: abs(card[0][k] - cpu[0][k]) / max(abs(cpu[0][k]), 1e-6)
+           for k in ("loss", "box_loss", "cls_loss", "dfl_loss")}
+    cos = {}
+    for n, g in cpu[1].items():
+        a, b = card[1][n].double(), g.double()
+        na, nb = float(a.norm()), float(b.norm())
+        cos[n] = 1.0 if na == nb == 0 else float(a @ b) / max(na * nb, 1e-300)
+    bn = max(float((card[2][p] - v).abs().max()) / max(float(v.abs().max()), 1.0)
+             for p, v in cpu[2].items())
+    worst = min(cos, key=cos.get)
+    out = {"model": f"YOLOv8s ({name}), 640, batch 2, f32, TF32 off",
+           "num_fg": card[0]["num_fg"], "loss_rel_diff": rel,
+           "min_grad_cosine": cos[worst], "min_grad_cosine_at": worst,
+           "bn_stats_max_diff": bn, "card_s": round(card_s, 3),
+           "cpu_s": round(cpu_s, 3)}
+    print(f"(a) card f32 step against the CPU: {out}", flush=True)
+    if card[0]["num_fg"] != cpu[0]["num_fg"] or card[0]["num_fg"] <= 0:
+        raise AssertionError("(a): fg anchors differ or none")
+    if max(rel.values()) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"(a): loss components differ {rel}")
+    if cos[worst] < TRAIN_GRAD_COS:
+        raise AssertionError(f"(a): gradient cosine {cos[worst]} at {worst}")
+    if bn > TRAIN_BN_TOL:
+        raise AssertionError(f"(a): BN statistics differ by {bn}")
+    return out
+
+
+def check_history(tag, history, keys):
+    for i, m in enumerate(history):
+        if m["skipped"] != 0.0 or m["num_fg"] <= 0 or not all(
+                np.isfinite(m[k]) for k in keys):
+            raise AssertionError(f"{tag} step {i}: {m}")
+
+
+def step_rate(history, batch):
+    """(mean ms per step after the first, images/s) of a run."""
+    ms = float(np.mean([m["ms"] for m in history[1:]]))
+    return ms, 1e3 * batch / ms
+
+
+def full_width_runs(tmp, max_err):
+    """(b): YOLOv8x at 640, batch 16, bf16, through the train loop."""
+    name = "hockey-player-detection"
+    cfg, init = MODEL_ZOO[name], shipped_weights_path(name)
+    frames, boxes = square_players(seed=21, n=TRAIN_POOL)
+    vframes, vboxes = square_players(seed=22, n=TRAIN_VAL)
+    pool, val = os.path.join(tmp, "pool.npz"), os.path.join(tmp, "val.npz")
+    write_pool(pool, frames, boxes)
+    write_pool(val, vframes, vboxes)
+    start = load_params(init)
+    # before and after, each model with its own running statistics, by one
+    # evaluator: the shipped model here, each run's EMA model below
+    evaluator, vset = InTrainingEvaluator(cfg, 640, device="cuda"), PoolDataset(val)
+
+    def held_out(model):
+        return round(evaluator.evaluate(model, vset, range(TRAIN_VAL))["mAP50"], 4)
+
+    before = held_out(build_model(cfg, start))
+    common = ["--model", name, "--imgsz", "640", "--batch", "16", "--init", init,
+              "--ema", "0.999", "--precise-bn", "2", "--val-pool", val,
+              "--val-size", str(TRAIN_VAL), "--lr", str(TRAIN_LR), "--log-every", "1",
+              "--save-every", "0", "--mosaic", "1.0", "--mixup", "0.15",
+              "--pool", pool]
+    runs, launches = {}, {}
+    for tag, steps, extra in (("device", TRAIN_STEPS_DEVICE, ["--device-data"]),
+                              ("host", TRAIN_STEPS_HOST, [])):
+        out = os.path.join(tmp, f"{tag}.msgpack")
+        torch.cuda.reset_peak_memory_stats()
+        suppress.launches = 0
+        run = train_loop.run(common + extra + ["--steps", str(steps), "--out", out,
+                                               "--val-every", "3"])
+        launches[tag] = suppress.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if run.rc != 0 or len(run.history) != steps:
+            raise AssertionError(f"{tag} run: rc {run.rc}, {len(run.history)} steps")
+        check_history(f"{tag} run", run.history,
+                      ("loss", "box_loss", "cls_loss", "dfl_loss", "grad_norm"))
+        if launches[tag] != 2 * len(run.val):  # 16 images: 2 batches of 8
+            raise AssertionError(f"{tag} run: {launches[tag]} kernel launches, "
+                                 f"{len(run.val)} validations")
+        # parameters and running statistics moved; the checkpoint holds the
+        # EMA weights, precise-BN's running statistics in it finite
+        now = flatten_tree(params_to_jax(run.trainer.model))
+        was = flatten_tree(start)
+        moved = {kind: any(not np.array_equal(now[k], was[k]) for k in now
+                           if (k[-1] in ("mean", "var")) == (kind == "stats"))
+                 for kind in ("params", "stats")}
+        if not all(moved.values()):
+            raise AssertionError(f"{tag} run: unchanged {moved}")
+        ema, saved = flatten_tree(params_to_jax(run.trainer.ema.model)), \
+            flatten_tree(load_params(out))
+        if saved.keys() != ema.keys() or not all(
+                np.isfinite(saved[k]).all() if k[-1] in ("mean", "var")
+                else np.array_equal(saved[k], ema[k]) for k in ema):
+            raise AssertionError(f"{tag} run: the checkpoint is not the EMA model")
+        ms, ips = step_rate(run.history, 16)
+        runs[tag] = dict(steps=steps, step_ms=[round(m["ms"], 3) for m in run.history],
+                         ms_per_step_after_first=round(ms, 3),
+                         images_per_s=round(ips, 2), peak_memory_gib=round(peak, 3),
+                         kernel_launches=launches[tag],
+                         mAP50_after=held_out(run.trainer.ema.model),
+                         mAP50_loop_val=round(run.val[-1][1]["mAP50"], 4),
+                         losses=[round(m["loss"], 4) for m in run.history],
+                         num_fg=[m["num_fg"] for m in run.history])
+        print(f"(b) {tag} path: {runs[tag]}", flush=True)
+        if tag == "device":
+            max_err = kernel_on_batch(
+                "train_eval (train loop, EMA model)", run.evaluator.core,
+                inference_copy(run.trainer.ema.model, torch.device("cuda"),
+                               torch.bfloat16), vframes[BATCH:], max_err,
+                site="train_loop")
+        del run
+    print(f"(b) held-out mAP50 on {TRAIN_VAL} square scenes, each model with "
+          f"its own running statistics: before (the shipped weights) {before}, "
+          f"after the device-data run {runs['device']['mAP50_after']}, after "
+          f"the host run {runs['host']['mAP50_after']} (the loop's validations "
+          f"after precise-BN: {runs['device']['mAP50_loop_val']}, "
+          f"{runs['host']['mAP50_loop_val']})", flush=True)
+    for tag in runs:
+        if before - runs[tag]["mAP50_after"] > TRAIN_MAP_DROP:
+            raise AssertionError(f"(b): held-out mAP50 fell after the {tag} run")
+    return dict(runs, mAP50_before=before), launches["device"] + launches["host"], max_err
+
+
+def matched(det, boxes, iou_min=0.25):
+    """gt boxes of each frame with a valid detection at IoU >= iou_min."""
+    found = 0
+    for i, gt in enumerate(boxes):
+        pb = det.boxes[i][det.valid[i]].float().cpu()
+        if len(pb) and len(gt):
+            found += int((box_iou(pb, torch.from_numpy(gt)).amax(0) >= iou_min).sum())
+    return found
+
+
+def learns():
+    """(c): a cold YOLOv8n overfits one batch and then finds its boxes
+    (at conf 0.05, up to 16 per image), which it must not before."""
+    s = LEARN_SIZE
+    frames, boxes = square_players(seed=31, n=16, s=s, heights=(45, 100))
+    cfg = YoloConfig("n", num_classes=2)
+    model = build_model(cfg, init_params(cfg, seed=0)).to(
+        "cuda", memory_format=torch.channels_last)
+    core = DetectCore(cfg, imgsz=s, frame_hw=(s, s), conf=0.05, rect=False,
+                      max_det=16)
+    images = torch.from_numpy(frames).cuda()
+
+    def found(m):
+        """(gt boxes found, kernel launches)."""
+        suppress.launches = 0
+        with torch.inference_mode():
+            det = core(inference_copy(m, torch.device("cuda"), torch.bfloat16),
+                       images)
+        return matched(det, boxes), suppress.launches
+
+    before, _ = found(precise_bn(model, make_bn_stats_fn(),
+                                 [images.float() / 255.0]))
+    trainer = Trainer(cfg, TrainConfig(imgsz=s, total_steps=LEARN_STEPS,
+                                       warmup_steps=10, learning_rate=0.01), model)
+    batch = batch_of(frames, boxes, "cuda")
+    t = time.perf_counter()
+    losses = [float(trainer.step(batch)["loss"]) for _ in range(LEARN_STEPS)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    after, launches = found(precise_bn(trainer.model, make_bn_stats_fn(),
+                                       [batch["images"]]))
+    total = sum(len(b) for b in boxes)
+    out = {"model": f"YOLOv8n cold init, {s}, batch 16, bf16",
+           "steps": LEARN_STEPS, "train_s": round(train_s, 3),
+           "ms_per_step": round(1e3 * train_s / LEARN_STEPS, 3),
+           "loss_first_last": [round(losses[0], 4), round(losses[-1], 4)],
+           "found_before": before, "found_after": after, "gt_boxes": total,
+           "kernel_launches": launches}
+    print(f"(c) it learns: {out}", flush=True)
+    if not np.isfinite(losses).all() or after * 2 < total or after <= before:
+        raise AssertionError(f"(c): found {after} of {total} boxes "
+                             f"({before} before training)")
+    return out, launches
+
+
+def pose_run(tmp, max_err):
+    """(d): the shipped pose model at 512 through the train loop."""
+    name, s = "hockey-detection", VAL_RINK_SIZE
+    frames, kpts = square_rink(seed=41, n=16, s=s)
+    vframes, vkpts = square_rink(seed=42, n=BATCH, s=s)
+    pool, val = os.path.join(tmp, "rink.npz"), os.path.join(tmp, "rink_val.npz")
+    write_pool(pool, frames, rink_boxes(kpts, s), kpts)
+    write_pool(val, vframes, rink_boxes(vkpts, s), vkpts)
+    suppress.launches = 0
+    run = train_loop.run(["--model", name, "--imgsz", str(s), "--batch", "8",
+                          "--steps", "3", "--init", shipped_weights_path(name),
+                          "--device-data", "--precise-bn", "1", "--val-every", "3",
+                          "--val-pool", val, "--val-size", str(BATCH), "--lr",
+                          str(TRAIN_LR), "--log-every", "1", "--save-every", "0",
+                          "--pool", pool, "--out", os.path.join(tmp, "pose.msgpack")])
+    launches = suppress.launches
+    if run.rc != 0:
+        raise AssertionError(f"(d): rc {run.rc}")
+    check_history("(d)", run.history, ("loss", "kpt_loss", "kobj_loss", "grad_norm"))
+    if launches != len(run.val):  # one batch of 8 per validation
+        raise AssertionError(f"(d): {launches} kernel launches")
+    out = {"model": "YOLOv8s-pose (hockey-detection), 512, batch 8, bf16",
+           "kpt_loss": [round(m["kpt_loss"], 4) for m in run.history],
+           "kobj_loss": [round(m["kobj_loss"], 4) for m in run.history],
+           "step_ms": [round(m["ms"], 3) for m in run.history],
+           "pck_after": round(run.val[-1][1]["pck"], 4), "kernel_launches": launches}
+    print(f"(d) pose: {out}", flush=True)
+    max_err = kernel_on_batch(
+        "pose_eval (train loop)", run.evaluator.core,
+        inference_copy(run.trainer.model, torch.device("cuda"), torch.bfloat16),
+        vframes, max_err, site="train_loop_pose")
+    return out, launches, max_err
+
+
+def training_phase(card, max_err):
+    """Phase 13; returns (kernel launches of the training runs, max_err)."""
+    t0 = time.perf_counter()
+    out = {"card": card, "card_against_cpu": card_against_cpu()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out["full_width"], launches_b, max_err = full_width_runs(tmp, max_err)
+        out["learns"], launches_c = learns()
+        out["pose"], launches_d, max_err = pose_run(tmp, max_err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["kernel_at_sites"] = {k: SITES[k] for k in ("train_loop", "train_loop_pose")}
+    out["kernel_launches"] = launches_b + launches_c + launches_d
+    out["phase_s"] = round(time.perf_counter() - t0, 2)
+    print(json.dumps({"training": out}), flush=True)
+    return out["kernel_launches"], max_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1979,7 +2333,12 @@ def main() -> int:
           f"{VAL_RINK_SIZE}), bf16 and f32")
     launches_v, max_err = validation_phase(config, max_err)
 
-    phase("13 results")
+    phase("13 training: (a) a YOLOv8s f32 step, card against CPU; (b) "
+          "hockey_tpu_torch.train.loop, YOLOv8x 640 b16 bf16, device-data and "
+          "host; (c) a cold YOLOv8n learns; (d) YOLOv8s-pose 512")
+    launches_tr, max_err = training_phase(card, max_err)
+
+    phase("14 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
@@ -1987,7 +2346,8 @@ def main() -> int:
         "source": "hockey_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
         "launches": (launches + launches_t + launches_c + launches_p + launches_r
-                     + launches_k + launches_m + launches_s + launches_v),
+                     + launches_k + launches_m + launches_s + launches_v
+                     + launches_tr),
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

@@ -1,12 +1,15 @@
-"""Reading the JAX package's shipped checkpoints without flax or msgpack.
+"""Reading and writing the JAX package's checkpoints without flax or
+msgpack.
 
 The shipped weights (`hockey_tpu/data/weights/*.msgpack`) are written by
 `flax.serialization.msgpack_serialize`: a msgpack tree of maps, lists and
 ext-type-1 array leaves, each leaf's payload itself a msgpack
 `[shape, dtype-name, raw C-order bytes]` (flax `_ndarray_to_bytes`). This
 module decodes exactly that subset of msgpack in pure Python, so the port
-loads weights on a machine that has neither package. The files are read in
-place; nothing is converted or copied into the tree.
+loads weights on a machine that has neither package, and `save_params`
+encodes a tree of that subset as flax does, byte for byte, so the JAX
+package's `load_params` reads the port's checkpoints. The shipped files are
+read in place; nothing is converted or copied into the tree.
 
 f16-shipped leaves come back as f32, as hockey_tpu/models/checkpoint.py
 `load_params` does.
@@ -136,6 +139,116 @@ def load_params(path: str) -> Dict:
     """Checkpoint file -> parameter tree of numpy arrays (f16 -> f32)."""
     with open(path, "rb") as f:
         return _f16_to_f32(msgpack_restore(f.read()))
+
+
+def _pack_uint(out: bytearray, n: int, fix_max: int, fix_base: int,
+               heads) -> None:
+    """A length or count header: the fixed form below `fix_max`, else the
+    smallest of `heads` ((limit, type byte, struct format) in order)."""
+    if n < fix_max:
+        out.append(fix_base | n)
+        return
+    for limit, code, fmt in heads:
+        if n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+_BIN_HEADS = ((1 << 8, 0xC4, ">B"), (1 << 16, 0xC5, ">H"), (1 << 32, 0xC6, ">I"))
+_STR_HEADS = ((1 << 8, 0xD9, ">B"), (1 << 16, 0xDA, ">H"), (1 << 32, 0xDB, ">I"))
+_ARRAY_HEADS = ((1 << 16, 0xDC, ">H"), (1 << 32, 0xDD, ">I"))
+_MAP_HEADS = ((1 << 16, 0xDE, ">H"), (1 << 32, 0xDF, ">I"))
+_FIXEXT_CODE = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+
+
+def _encode(out: bytearray, x) -> None:
+    """Append `x` (dict with str keys, list, tuple, str, bytes, int or
+    numpy array) as msgpack-python's `packb` writes it, arrays as flax's
+    ext type 1 and dict keys sorted (flax rebuilds the tree with
+    jax.tree_util, which sorts them)."""
+    if isinstance(x, dict):
+        _pack_uint(out, len(x), 16, 0x80, _MAP_HEADS)
+        for k, v in sorted(x.items()):
+            _encode(out, k)
+            _encode(out, v)
+    elif isinstance(x, (list, tuple)):
+        _pack_uint(out, len(x), 16, 0x90, _ARRAY_HEADS)
+        for v in x:
+            _encode(out, v)
+    elif isinstance(x, str):
+        b = x.encode("utf-8")
+        _pack_uint(out, len(b), 32, 0xA0, _STR_HEADS)
+        out += b
+    elif isinstance(x, bytes):
+        _pack_uint(out, len(x), 0, 0, _BIN_HEADS)
+        out += x
+    elif isinstance(x, (int, np.integer)) and not isinstance(x, bool):
+        x = int(x)
+        if 0 <= x < 0x80:
+            out.append(x)
+        elif -32 <= x < 0:
+            out.append(x & 0xFF)
+        elif x >= 0:
+            for limit, (code, fmt) in zip((1 << 8, 1 << 16, 1 << 32, 1 << 64),
+                                          _UINT.items()):
+                if x < limit:
+                    out.append(code)
+                    out += struct.pack(fmt, x)
+                    return
+            raise ValueError(f"integer {x} too large for msgpack")
+        else:
+            for limit, (code, fmt) in zip((1 << 7, 1 << 15, 1 << 31, 1 << 63),
+                                          _INT.items()):
+                if -limit <= x:
+                    out.append(code)
+                    out += struct.pack(fmt, x)
+                    return
+            raise ValueError(f"integer {x} too large for msgpack")
+    elif isinstance(x, np.ndarray):
+        if x.dtype.hasobject or x.dtype.names is not None:
+            raise ValueError(f"unsupported array dtype {x.dtype}")
+        payload = bytearray()
+        _encode(payload, (list(x.shape), x.dtype.name, x.tobytes("C")))
+        n = len(payload)
+        if n in _FIXEXT_CODE:
+            out.append(_FIXEXT_CODE[n])
+        else:
+            _pack_uint(out, n, 0, 0, tuple(zip((1 << 8, 1 << 16, 1 << 32),
+                                               _EXT, _EXT.values())))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"cannot encode {type(x).__name__} in a checkpoint")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Nested dicts/lists of numpy arrays -> the bytes that
+    flax.serialization.msgpack_serialize gives for the same tree (arrays
+    below flax's 1 GiB chunking size)."""
+    out = bytearray()
+    _encode(out, tree)
+    return bytes(out)
+
+
+def save_params(path: str, tree: Dict, dtype=None) -> None:
+    """Write a parameter tree (numpy arrays, e.g. `params_to_jax`) as a
+    checkpoint the JAX package's `load_params` reads; `dtype='float16'`
+    stores f32 leaves as f16, as hockey_tpu/models/checkpoint.py
+    `save_params` does."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [cast(v) for v in t]
+        a = np.asarray(t)
+        return a.astype(dtype) if dtype is not None and a.dtype == np.float32 else a
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    data = msgpack_serialize(cast(tree))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def shipped_weights_path(model_name: str) -> Optional[str]:

@@ -1,4 +1,4 @@
-"""YOLOv8 building blocks as inference-only `nn.Module`s.
+"""YOLOv8 building blocks as `nn.Module`s, for inference and training.
 
 Port of hockey_tpu/models/layers.py. Parameter names mirror the JAX
 package's parameter tree (`w`, `b`, `bn.{scale,bias,mean,var}`, a C2f's
@@ -6,9 +6,22 @@ package's parameter tree (`w`, `b`, `bn.{scale,bias,mean,var}`, a C2f's
 (models/yolov8.py). Kernels are OIHW here (the JAX package keeps HWIO);
 the model runs NCHW-shaped tensors in channels_last memory, which is the
 JAX package's NHWC byte order.
+
+A module is built in the inference form, every tensor a buffer, as the
+serving paths load and fold it. `trainable` turns it into the training
+form in place: `w`, `b`, `bn.scale` and `bn.bias` become parameters, the
+BN running `mean` and `var` stay buffers. A forward given a `stats` list
+is a training forward: each BN normalises by its batch statistics and
+appends `(path, mean, var)` to the list, `path` being the JAX package's
+name of the conv (`backbone/c2f1/m0/cv1`, `StatsCollector`), and the
+train step applies the running-stat update (train/trainer.py). Without
+it, BN uses the running statistics. `fuse_conv_bn` folds either form
+into an inference conv.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,7 +36,8 @@ def make_divisible(x: float, divisor: int = 8) -> int:
 
 
 class BatchNorm(nn.Module):
-    """Running statistics of one conv's BatchNorm (inference only)."""
+    """One conv's BatchNorm: the affine `scale` and `bias` and the running
+    statistics."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -40,7 +54,10 @@ class BatchNorm(nn.Module):
 
 class Conv(nn.Module):
     """Conv -> BN -> SiLU with symmetric k//2 padding
-    (hockey_tpu layers.py:94-108 `_conv2d` + `conv_apply`)."""
+    (hockey_tpu layers.py:94-139 `_conv2d` + `conv_apply`). The kernel and
+    bias are cast to the input's dtype, so f32 masters run a bf16 forward;
+    BN statistics are f32. `path` is the conv's name in the JAX tree,
+    set by the model that holds it."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  bn: bool = True, bias: bool = False, act: bool = True):
@@ -49,30 +66,60 @@ class Conv(nn.Module):
         self.register_buffer("w", torch.zeros(cout, cin, k, k))
         self.bn = BatchNorm(cout) if bn else None
         self.register_buffer("b", torch.zeros(cout) if bias else None)
+        self.path = "conv"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.w, self.b, self.stride, self.pad)
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None) -> torch.Tensor:
+        b = None if self.b is None else self.b.to(x.dtype)
+        y = F.conv2d(x, self.w.to(x.dtype), b, self.stride, self.pad)
         if self.bn is not None:
-            scale, bias = self.bn.folded()
+            if stats is None:
+                scale, bias = self.bn.folded()
+            else:  # batch statistics, biased variance, in f32
+                var, mean = torch.var_mean(y.float(), dim=(0, 2, 3),
+                                           unbiased=False)
+                stats.append((self.path, mean.detach(), var.detach()))
+                scale = self.bn.scale * torch.rsqrt(var + BN_EPS)
+                bias = self.bn.bias - mean * scale
             y = (y * scale.to(y.dtype)[:, None, None]
                  + bias.to(y.dtype)[:, None, None])
         return F.silu(y) if self.act else y
 
 
+def trainable(model: nn.Module) -> nn.Module:
+    """The training form, in place: every Conv's `w`, `b` and BN `scale`
+    and `bias` become parameters (the running statistics stay buffers).
+    Returns `model`."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            for owner, name in ((m, "w"), (m, "b"), (m.bn, "scale"), (m.bn, "bias")):
+                t = None if owner is None else getattr(owner, name)
+                if t is not None and not isinstance(t, nn.Parameter):
+                    delattr(owner, name)
+                    owner.register_parameter(name, nn.Parameter(t))
+    return model
+
+
 def fuse_conv_bn(conv: Conv) -> Conv:
     """Fold the BN into the kernel and bias in place: y = conv(x, w') + b'
-    (hockey_tpu layers.py:fuse_conv_bn)."""
-    if conv.bn is None:
-        return conv
-    scale, bias = conv.bn.folded()
-    conv.w = conv.w * scale[:, None, None, None]
-    conv.b = bias if conv.b is None else conv.b * scale + bias
+    (hockey_tpu layers.py:fuse_conv_bn). The folded `w` and `b` are
+    buffers, whichever form the conv was in."""
+    with torch.no_grad():
+        w = conv.w.detach()
+        b = None if conv.b is None else conv.b.detach()
+        if conv.bn is not None:
+            scale, bias = conv.bn.folded()
+            w = w * scale[:, None, None, None]
+            b = bias if b is None else b * scale + bias
+    del conv.w, conv.b
+    conv.register_buffer("w", w)
+    conv.register_buffer("b", b)
     conv.bn = None
     return conv
 
 
 def fuse_model(model: nn.Module) -> nn.Module:
-    """Fold every Conv's BN in place; returns `model`."""
+    """Fold every Conv's BN in place; returns `model`, all of whose
+    convs then hold buffers."""
     for m in model.modules():
         if isinstance(m, Conv):
             fuse_conv_bn(m)
@@ -95,8 +142,8 @@ class Bottleneck(nn.Module):
         self.cv2 = Conv(ch, cout, 3)
         self.add = add
 
-    def forward(self, x):
-        y = self.cv2(self.cv1(x))
+    def forward(self, x, stats=None):
+        y = self.cv2(self.cv1(x, stats), stats)
         return x + y if self.add else y
 
 
@@ -110,11 +157,11 @@ class C2f(nn.Module):
         self.cv2 = Conv((2 + n) * ch, cout, 1)
         self.m = nn.ModuleList(Bottleneck(ch, ch, shortcut) for _ in range(n))
 
-    def forward(self, x):
-        ys = list(self.cv1(x).chunk(2, dim=1))
+    def forward(self, x, stats=None):
+        ys = list(self.cv1(x, stats).chunk(2, dim=1))
         for m in self.m:
-            ys.append(m(ys[-1]))
-        return self.cv2(torch.cat(ys, dim=1))
+            ys.append(m(ys[-1], stats))
+        return self.cv2(torch.cat(ys, dim=1), stats)
 
 
 class SPPF(nn.Module):
@@ -127,12 +174,12 @@ class SPPF(nn.Module):
         self.cv1 = Conv(cin, ch, 1)
         self.cv2 = Conv(ch * 4, cout, 1)
 
-    def forward(self, x):
-        y = self.cv1(x)
+    def forward(self, x, stats=None):
+        y = self.cv1(x, stats)
         y1 = F.max_pool2d(y, 5, 1, 2)
         y2 = F.max_pool2d(y1, 5, 1, 2)
         y3 = F.max_pool2d(y2, 5, 1, 2)
-        return self.cv2(torch.cat([y, y1, y2, y3], dim=1))
+        return self.cv2(torch.cat([y, y1, y2, y3], dim=1), stats)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -6,12 +6,18 @@ xyxy boxes and (B, A, nc) sigmoid scores, `decode_keypoints` a pose
 model's (B, A, K, 3) keypoints. Inside, the network runs
 NCHW-shaped tensors in channels_last memory (the same bytes as NHWC), the
 layout cuDNN's bf16 tensor-core convolutions prefer.
+
+A parameter tree in the JAX layout (nested dicts and lists of numpy
+arrays, HWIO kernels) is the exchange format: `init_params` draws one,
+`build_model` loads one (`params_from_jax`), `params_to_jax` writes a
+model back as one, which models/checkpoint.py `save_params` stores as
+the JAX package's checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,8 +95,21 @@ class Branch(nn.Module):
         self.cv2 = Conv(c, c, 3)
         self.out = Conv(c, cout, 1, bn=False, bias=True, act=False)
 
-    def forward(self, x):
-        return self.out(self.cv2(self.cv1(x)))
+    def forward(self, x, stats=None):
+        return self.out(self.cv2(self.cv1(x, stats), stats))
+
+
+def jax_path(name: str) -> str:
+    """A module name of the port ('backbone.c2f1.m.0.cv1', 'head.reg.0')
+    -> the JAX package's BN path ('backbone/c2f1/m0/cv1', 'head/reg0'):
+    a list index joins the name before it."""
+    out = []
+    for t in name.split("."):
+        if t.isdigit():
+            out[-1] += t
+        else:
+            out.append(t)
+    return "/".join(out)
 
 
 class YOLOv8(nn.Module):
@@ -134,24 +153,56 @@ class YOLOv8(nn.Module):
             nk = 3 * cfg.num_keypoints
             ckpt = max(ch[0] // 4, nk)
             self.head["kpt"] = nn.ModuleList(Branch(c, ckpt, nk) for c in ch)
+        for name, m in self.named_modules():
+            if isinstance(m, Conv):
+                m.path = jax_path(name)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None
+                ) -> Dict[str, List[torch.Tensor]]:
         """x: (B, 3, H, W) -> per-level NCHW head maps {'box', 'cls'} and,
-        for a pose model, 'kpt' (B, 3K, Hi, Wi)."""
-        b, n = self.backbone, self.neck
-        y = b["down1"](b["stem"](x))
-        y = b["c2f1"](y)
-        p3 = b["c2f2"](b["down2"](y))
-        p4 = b["c2f3"](b["down3"](p3))
-        p5 = b["sppf"](b["c2f4"](b["down4"](p4)))
-        t4 = n["c2f_up1"](torch.cat([upsample2x(p5), p4], 1))
-        o3 = n["c2f_up2"](torch.cat([upsample2x(t4), p3], 1))
-        o4 = n["c2f_d1"](torch.cat([n["down_p3"](o3), t4], 1))
-        o5 = n["c2f_d2"](torch.cat([n["down_p4"](o4), p5], 1))
+        for a pose model, 'kpt' (B, 3K, Hi, Wi). With a `stats` list, BN
+        runs on batch statistics and each conv's (path, mean, var) is
+        appended to it (models/layers.py)."""
+        b, n, s = self.backbone, self.neck, stats
+        y = b["down1"](b["stem"](x, s), s)
+        y = b["c2f1"](y, s)
+        p3 = b["c2f2"](b["down2"](y, s), s)
+        p4 = b["c2f3"](b["down3"](p3, s), s)
+        p5 = b["sppf"](b["c2f4"](b["down4"](p4, s), s), s)
+        t4 = n["c2f_up1"](torch.cat([upsample2x(p5), p4], 1), s)
+        o3 = n["c2f_up2"](torch.cat([upsample2x(t4), p3], 1), s)
+        o4 = n["c2f_d1"](torch.cat([n["down_p3"](o3, s), t4], 1), s)
+        o5 = n["c2f_d2"](torch.cat([n["down_p4"](o4, s), p5], 1), s)
         feats = (o3, o4, o5)
-        return {name: [m(f) for m, f in zip(self.head[key], feats)]
+        return {name: [m(f, s) for m, f in zip(self.head[key], feats)]
                 for name, key in (("box", "reg"), ("cls", "cls"), ("kpt", "kpt"))
                 if key in self.head}
+
+
+def init_params(cfg: YoloConfig, seed: int = 0, box_prior: float = 0.0) -> Dict:
+    """A fresh parameter tree in the JAX layout (hockey_tpu
+    yolov8.py:110-191): He-normal kernels, BN at identity, the class
+    biases at the prior log(5 / nc / (640 / stride)^2), and the box
+    biases at ones, or with `box_prior` > 0 a Gaussian over the DFL bins
+    centred on `box_prior` grid units per side (a tiny-object cold
+    start). The draws are numpy's `default_rng(seed)`, not JAX's."""
+    rng = np.random.default_rng(seed)
+    tree = params_to_jax(YOLOv8(cfg))
+    for path, leaf in flatten_tree(tree).items():
+        if path[-1] == "w":  # HWIO
+            k, _, cin, _ = leaf.shape
+            leaf[...] = (rng.standard_normal(leaf.shape, np.float32)
+                         * np.float32(np.sqrt(2.0 / (cin * k * k))))
+    for i, s in enumerate(STRIDES):
+        tree["head"]["cls"][i]["out"]["b"][:] = np.log(
+            5.0 / cfg.num_classes / (640.0 / s) ** 2)
+        if box_prior > 0:
+            j = np.arange(cfg.reg_max, dtype=np.float32)
+            tree["head"]["reg"][i]["out"]["b"][:] = np.tile(
+                -0.5 * ((j - box_prior) / 0.75) ** 2, 4)
+        else:
+            tree["head"]["reg"][i]["out"]["b"][:] = 1.0
+    return tree
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -167,19 +218,48 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     return state
 
 
+def params_to_jax(model: nn.Module) -> Dict:
+    """The inverse of `params_from_jax`: a model's parameters and BN
+    statistics as a JAX-layout tree of f32 numpy arrays (OIHW kernels
+    transposed to HWIO, list indices as lists)."""
+    tree: Dict = {}
+    for name, t in model.state_dict().items():
+        a = t.detach().float().cpu().numpy().copy()  # not the model's memory
+        if name.endswith(".w") and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        *spine, leaf = name.split(".")
+        node = tree
+        for k in spine:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(a)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
 def build_model(cfg: YoloConfig, params) -> YOLOv8:
-    """YOLOv8 in eval mode from a JAX-layout parameter tree."""
+    """YOLOv8 in eval mode from a JAX-layout parameter tree, in the
+    inference form (models/layers.py `trainable` gives the training
+    form)."""
     model = YOLOv8(cfg).eval()
     model.load_state_dict(params_from_jax(params), strict=True)
     return model
 
 
-def forward_raw(model: YOLOv8, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+def forward_raw(model: YOLOv8, x: torch.Tensor, stats: Optional[list] = None
+                ) -> Dict[str, List[torch.Tensor]]:
     """(B, H, W, 3) NHWC input -> per-level NHWC raw head maps: 'box'
     (B, Hi, Wi, 4*reg_max), 'cls' (B, Hi, Wi, nc) and for a pose model
     'kpt' (B, Hi, Wi, 3K), as the JAX forward_raw returns them. The maps
-    are NHWC-shaped views; `decode_*` flattens them in that order."""
-    out = model(x.permute(0, 3, 1, 2))  # NCHW shape, NHWC bytes
+    are NHWC-shaped views; `decode_*` flattens them in that order. With a
+    `stats` list it is the training forward (`YOLOv8.forward`)."""
+    out = model(x.permute(0, 3, 1, 2), stats)  # NCHW shape, NHWC bytes
     return {k: [m.permute(0, 2, 3, 1) for m in v] for k, v in out.items()}
 
 

@@ -1,0 +1,340 @@
+"""Training loop CLI: `python -m hockey_tpu_torch.train.loop`.
+
+Port of hockey_tpu/train/loop.py, the counterpart of the reference's
+`yolo task=detect mode=train` (notebooks/train_player_detection.ipynb
+cell 15): cosine LR, HSV + flip (+ mosaic, mixup) augmentation, EMA
+weights, precise-BN, periodic checkpoints and validation with the best
+checkpoint kept. It trains on the card (`--device cuda`, the default,
+bf16 compute on f32 masters) or on the CPU (`--device cpu`, f32).
+
+The data is a YOLO-format directory (`--images`, needs cv2) or a pool in
+the `save_cache` format (`--pool PATH`, as the val CLI reads it; the JAX
+CLI's `--pool N` renders N scenes instead), held-out validation a second
+pool (`--val-pool PATH`). With `--device-data` the pool is staged in
+device memory and augmented there (train/device_aug.py); otherwise
+`batch_iterator` augments on the host. Checkpoints are the JAX package's
+msgpack trees (models/checkpoint.py `save_params`).
+
+Flags whose code is not ported raise, naming the module: rendering
+(`--dataset hard|hard-puck|synthetic`, no `--images`/`--pool`,
+`--domain-rand`: the scene generators draw with cv2) and `--dp`/`--fsdp`
+above 1 (multi-device sharding).
+
+The collapse detector stays a tripwire: with gradients leaking through
+the assignment the model learns to predict nothing (TAL's degenerate
+minimum; train/losses.py keeps the assignment gradient-free).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train a hockey_tpu_torch YOLOv8 detector")
+    p.add_argument("--images", type=str, default=None,
+                   help="images/ dir of a YOLO-format dataset (labels/ sibling)")
+    p.add_argument("--pool", type=str, default=None,
+                   help="a pre-rendered pool .npz (the save_cache format, "
+                        "e.g. scripts/render_val_set.py) to train on")
+    p.add_argument("--val-pool", type=str, default=None,
+                   help="a held-out pool .npz for --val-every")
+    p.add_argument("--model", type=str, default="hockey-player-detection")
+    p.add_argument("--variant", type=str, default=None,
+                   help="override variant (n/s/m/l/x), e.g. n for smoke tests")
+    p.add_argument("--imgsz", type=int, default=640)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--warmup", type=int, default=100)
+    p.add_argument("--out", type=str, default="checkpoints/model.msgpack")
+    p.add_argument("--save-every", type=int, default=500)
+    p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ways (multi-device: not ported; 0 or 1)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="parameter-sharded ways (not ported; 1)")
+    p.add_argument("--mosaic", type=float, default=0.0,
+                   help="mosaic probability (ultralytics recipe: 1.0)")
+    p.add_argument("--mixup", type=float, default=0.0,
+                   help="mixup probability (ultralytics recipe: 0.15)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dataset", type=str, default="auto",
+                   choices=["auto", "hard", "hard-puck", "synthetic"],
+                   help="rendered datasets are not ported: give --pool")
+    p.add_argument("--domain-rand", action="store_true",
+                   help="rendering option (not ported)")
+    p.add_argument("--val-every", type=int, default=0,
+                   help="evaluate mAP (PCK for a pose model) on --val-pool "
+                        "every N steps and keep the best checkpoint")
+    p.add_argument("--val-size", type=int, default=150)
+    p.add_argument("--ema", type=float, default=0.0,
+                   help="EMA decay for eval/checkpoint weights (e.g. 0.999)")
+    p.add_argument("--init", type=str, default=None,
+                   help="initialize from an existing checkpoint")
+    p.add_argument("--box-prior", type=float, default=0.0,
+                   help="init the DFL reg-head bias toward this extent "
+                        "(grid units/side); ~1.0 for tiny objects (puck)")
+    p.add_argument("--precise-bn", type=int, default=8,
+                   help="recalibrate BN running stats over N clean batches "
+                        "before every val/checkpoint (0 = off)")
+    p.add_argument("--device-data", action="store_true",
+                   help="stage the pool in device memory and augment there "
+                        "(train/device_aug.py): no per-step image upload")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default, bf16 compute) or cpu (f32)")
+    return p
+
+
+def check_ported(args) -> None:
+    """Raise for a flag whose code the port does not have."""
+    if args.dp > 1 or args.fsdp > 1:
+        raise NotImplementedError(
+            "--dp/--fsdp above 1 need multi-device sharding (hockey_tpu/core/"
+            "mesh.py, hockey_tpu/parallel/sharding.py), which is not ported")
+    if args.domain_rand or args.dataset in ("hard", "hard-puck"):
+        raise NotImplementedError(
+            "rendered scenes (--dataset hard/hard-puck, --domain-rand) need "
+            "hockey_tpu/train/scenes.py HardSyntheticHockeyDataset, which is "
+            "not ported (it draws with cv2): render a pool on the CPU and "
+            "pass --pool")
+    if bool(args.images) == bool(args.pool):
+        if args.images:
+            raise ValueError("give one of --images or --pool, not both")
+        raise NotImplementedError(
+            "without --images or --pool the JAX CLI renders "
+            "hockey_tpu/train/data.py SyntheticHockeyDataset or "
+            "SyntheticRinkDataset, which are not ported (they draw with "
+            "cv2): pass --pool")
+    if args.dataset == "synthetic":
+        raise NotImplementedError(
+            "--dataset synthetic needs hockey_tpu/train/data.py "
+            "SyntheticHockeyDataset, which is not ported: pass --pool")
+    if args.val_every and not args.val_pool:
+        raise ValueError("--val-every needs --val-pool")
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a run did: its exit code, each step's metrics (floats, with
+    the step's wall ms in 'ms'), each validation's (step, metrics), the
+    trainer (model, optimizer, EMA), the in-training evaluator (None
+    without --val-every) and the best validation score."""
+
+    rc: int
+    history: List[Dict[str, float]]
+    val: List
+    trainer: object
+    evaluator: object
+    best: float
+
+
+def run(argv: Optional[List[str]] = None) -> TrainRun:
+    """The body of `main`: parse `argv`, train, save; returns the run."""
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+
+    import torch
+
+    from ..core.device import resolve_device
+    from ..models.checkpoint import load_params, save_params
+    from ..models.yolov8 import (MODEL_ZOO, YoloConfig, build_model, init_params,
+                                 params_to_jax)
+    from .data import PoolDataset, YoloDataset, batch_iterator
+    from .trainer import TrainConfig, Trainer, batch_to, make_bn_stats_fn, precise_bn
+
+    device = resolve_device(args.device)
+    cfg = MODEL_ZOO[args.model]
+    if args.variant:
+        cfg = YoloConfig(args.variant, cfg.num_classes, cfg.num_keypoints)
+    tc = TrainConfig(imgsz=args.imgsz, learning_rate=args.lr,
+                     warmup_steps=args.warmup, total_steps=args.steps,
+                     compute_dtype="bfloat16" if device.type == "cuda" else "float32")
+    if args.init:
+        tree = load_params(args.init)
+        print(f"initialized from {args.init}")
+    else:
+        tree = init_params(cfg, seed=args.seed, box_prior=args.box_prior)
+    model = build_model(cfg, tree).to(device)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+
+    if args.images:
+        dataset = YoloDataset(args.images, imgsz=args.imgsz)
+        print(f"dataset: {len(dataset)} images from {args.images}")
+    else:
+        dataset = PoolDataset(args.pool)
+        if dataset.imgsz != args.imgsz:
+            raise ValueError(f"{args.pool} holds {dataset.imgsz}-px images, "
+                             f"--imgsz is {args.imgsz}")
+        print(f"dataset: pool of {len(dataset)} images from {args.pool}")
+    val_dataset = PoolDataset(args.val_pool) if args.val_pool else None
+
+    trainer = Trainer(cfg, tc, model, ema_decay=args.ema)
+
+    evaluator = None
+    if args.val_every:
+        if cfg.num_keypoints:
+            from .eval import InTrainingPoseEvaluator
+
+            evaluator = InTrainingPoseEvaluator(cfg, imgsz=args.imgsz, device=device)
+        else:
+            from .eval import InTrainingEvaluator
+
+            evaluator = InTrainingEvaluator(cfg, imgsz=args.imgsz, device=device)
+    best = -1.0
+    val_log = []
+
+    # precise-BN: recalibrate running stats on clean train-distribution
+    # images before any eval/save
+    recal = None
+    if args.precise_bn:
+        stats_fn = make_bn_stats_fn(tc.compute_dtype)
+        rb = min(8, args.batch)
+
+        def recal_batches():
+            for k in range(args.precise_bn):
+                idx = [(k * rb + j) % len(dataset) for j in range(rb)]
+                yield np.stack([dataset.load(int(i))["images"] for i in idx])
+
+        def recal(m):
+            return precise_bn(m, stats_fn, recal_batches())
+
+    def prep_ckpt(m):
+        return recal(m) if recal is not None else m
+
+    def ckpt_model():
+        return trainer.model if trainer.ema is None else trainer.ema.model
+
+    def run_val(i, cur):
+        nonlocal best
+        cur = prep_ckpt(cur)
+        m = evaluator.evaluate(cur, val_dataset,
+                               range(min(len(val_dataset), args.val_size)))
+        val_log.append((i, m))
+        score_key = "pck" if "pck" in m else "mAP50"
+        tag = ""
+        if m[score_key] > best:
+            best = m[score_key]
+            save_params(args.out + ".best", params_to_jax(cur))
+            tag = " (best, saved)"
+        if score_key == "pck":
+            print(f"step {i:6d} VAL PCK@0.05 {m['pck']:.4f} "
+                  f"kpt_err {m['mean_kpt_error_px']:.2f}px{tag}", flush=True)
+        else:
+            per_cls = " ".join(f"{k}={v:.3f}" for k, v in m.items()
+                               if k.startswith("AP50_class"))
+            print(f"step {i:6d} VAL mAP50 {m['mAP50']:.4f} "
+                  f"mAP50-95 {m['mAP50_95']:.4f} {per_cls}{tag}", flush=True)
+
+    def log(i, m, t0):
+        print(f"step {i:6d} loss {m['loss']:8.4f} box {m['box_loss']:.4f} "
+              f"cls {m['cls_loss']:.4f} dfl {m['dfl_loss']:.4f} "
+              f"fg {m['num_fg']:.0f} gn {m['grad_norm']:.1f} "
+              f"({(time.time() - t0) / max(i, 1):.2f}s/step)", flush=True)
+
+    def collapsing(i, m):
+        # TAL degenerate-minimum detector: box_loss ~ 0 with fg anchors
+        # present means the targets collapsed (the model predicts nothing)
+        return (i > 200 and np.isfinite(m["loss"]) and not cfg.num_keypoints
+                and m["box_loss"] < 0.02 and m["num_fg"] > 0)
+
+    def finish(rc):
+        if rc == 0:
+            if evaluator is not None:
+                run_val(args.steps, ckpt_model())
+            save_params(args.out, params_to_jax(prep_ckpt(ckpt_model())))
+            print(f"saved {args.out} (best val {best:.4f})" if best >= 0
+                  else f"saved {args.out}")
+        return TrainRun(rc, history, val_log, trainer, evaluator, best)
+
+    history: List[Dict[str, float]] = []
+
+    def step(batch, t):
+        """One train step; its metrics as floats, with 'ms' the wall time
+        since `t` (the batch's making included)."""
+        m = {k: float(v) for k, v in trainer.step(batch).items()}  # syncs
+        m["ms"] = 1e3 * (time.perf_counter() - t)
+        history.append(m)
+        return m
+
+    def periodic(i):
+        if evaluator is not None and i and i % args.val_every == 0:
+            run_val(i, ckpt_model())
+        if args.save_every and i and i % args.save_every == 0:
+            save_params(args.out, params_to_jax(prep_ckpt(ckpt_model())))
+
+    if args.device_data:
+        # device-resident pipeline: the pool is staged once, augmentation
+        # runs on the device, the host sends nothing per step
+        from .device_aug import make_device_batch_fn, make_pose_batch_fn, stage_pool
+
+        print(f"staging the pool ({len(dataset)} scenes) in device memory...")
+        pool = stage_pool(dataset, device=device)  # keypoints too, for pose
+        if cfg.num_keypoints:
+            if args.mosaic or args.mixup:
+                print("note: --mosaic/--mixup are unsupported for pose "
+                      "pools; training without them")
+            batch_fn = make_pose_batch_fn(args.batch)
+        else:
+            batch_fn = make_device_batch_fn(args.imgsz, args.batch,
+                                            mosaic_prob=args.mosaic,
+                                            mixup_prob=args.mixup)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        t0, bad, collapsed = time.time(), 0, 0
+        for i in range(args.steps):
+            t = time.perf_counter()
+            m = step(batch_fn(pool, gen), t)
+            # the trainer discards non-finite updates (bf16 spike guard);
+            # only a persistent streak means training is hopeless
+            bad = bad + 1 if not np.isfinite(m["loss"]) else 0
+            if bad >= 25:
+                print("non-finite loss for 25 consecutive steps; aborting")
+                return TrainRun(1, history, val_log, trainer, evaluator, best)
+            collapsed = collapsed + 1 if collapsing(i, m) else 0
+            if collapsed >= 100:
+                print(f"step {i}: TAL collapse detected (box_loss ~ 0 for "
+                      f"100 consecutive steps); stopping early. Restart "
+                      f"from the saved best checkpoint at a lower --lr.")
+                return TrainRun(3, history, val_log, trainer, evaluator, best)
+            if i % args.log_every == 0 or i == args.steps - 1:
+                log(i, m, t0)
+            periodic(i)
+        return finish(0)
+
+    t0, bad, collapsed = time.time(), 0, 0
+    it = batch_iterator(dataset, args.batch, args.steps, seed=args.seed,
+                        mosaic_prob=args.mosaic, mixup_prob=args.mixup)
+    t = time.perf_counter()
+    for i, host_batch in enumerate(it):  # the host's augmentation in 'ms'
+        m = step(batch_to(host_batch, device), t)
+        t = time.perf_counter()
+        if i % args.log_every == 0 or i == args.steps - 1:
+            log(i, m, t0)
+            # skip-guarded updates: only a streak of bad logged losses
+            # means training is hopeless
+            bad = bad + 1 if not np.isfinite(m["loss"]) else 0
+            if bad >= 3:
+                print("non-finite loss persists; aborting")
+                return TrainRun(1, history, val_log, trainer, evaluator, best)
+            collapsed = collapsed + 1 if collapsing(i, m) else 0
+            if collapsed >= 5:
+                print(f"step {i}: TAL collapse detected (box_loss ~ 0); "
+                      f"stopping early. Restart from the saved best "
+                      f"checkpoint at a lower --lr.")
+                return TrainRun(3, history, val_log, trainer, evaluator, best)
+        periodic(i)
+    return finish(0)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    return run(argv).rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

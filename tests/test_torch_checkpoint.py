@@ -1,15 +1,20 @@
 """The port's pure-Python msgpack decoder against flax's own restore:
-leaves bit for bit, structure (dicts and lists) alike."""
+leaves bit for bit, structure (dicts and lists) alike; and its writer
+against flax's `msgpack_serialize` and the JAX package's `save_params`,
+byte for byte."""
 
 import numpy as np
 import pytest
 from flax import serialization
 
 from hockey_tpu.models.checkpoint import load_params as jax_load_params
+from hockey_tpu.models.checkpoint import save_params as jax_save_params
 from hockey_tpu_torch.models.checkpoint import (
     flatten_tree,
     load_params,
     msgpack_restore,
+    msgpack_serialize,
+    save_params,
     shipped_weights_path,
 )
 
@@ -70,3 +75,33 @@ def test_fresh_tree_roundtrip(tmp_path, rng):
         assert g.dtype == want_np.dtype, k
         np.testing.assert_array_equal(g, want_np)
     assert got["half"].dtype == np.float32
+
+
+@pytest.mark.parametrize("dtype", [None, "float16"])
+def test_writer_bytes_match_flax(tmp_path, rng, dtype):
+    """f32, f16 and integer leaves, nested lists, a 0-d array and arrays
+    whose ext payloads cross msgpack's fixext, ext8, ext16 and ext32
+    sizes: the port's bytes are flax's, and its file is the JAX
+    package's `save_params` file (f32 leaves stored as f16 with
+    `dtype='float16'`)."""
+    tree = {
+        "a": rng.standard_normal((3, 4)).astype(np.float32),
+        "big": rng.standard_normal((130, 130)).astype(np.float32),  # ext32
+        "half": rng.standard_normal((5,)).astype(np.float16),
+        "ints": rng.integers(-2**31, 2**31 - 1, (2, 3)).astype(np.int32),
+        "longs": rng.integers(-2**62, 2**62, (70,)).astype(np.int64),  # ext16
+        "m": [{"bn": {"mean": rng.standard_normal((3,)).astype(np.float32)},
+               "w": rng.standard_normal((2, 2, 3, 4)).astype(np.float32)},
+              [np.zeros((0,), np.float32), np.ones((1,), np.uint8)]],
+        "scalar": np.asarray(1.5, np.float32),
+    }
+    assert msgpack_serialize(tree) == serialization.msgpack_serialize(tree)
+    got, want = tmp_path / "port.msgpack", tmp_path / "jax.msgpack"
+    save_params(str(got), tree, dtype=dtype)
+    jax_save_params(str(want), tree, dtype=dtype)
+    assert got.read_bytes() == want.read_bytes()
+    back = flatten_tree(serialization.msgpack_restore(got.read_bytes()))
+    for k, v in flatten_tree(tree).items():
+        stored = v.astype(dtype) if dtype and v.dtype == np.float32 else v
+        assert back[k].dtype == stored.dtype, k
+        np.testing.assert_array_equal(back[k], stored)

@@ -8,7 +8,9 @@ rink, homography and 2D-map modules, the rest of the team cascade
 classifiers), the run state and the multi-clip mode among it, also loads
 without cv2, msgpack or sklearn (the GPU machine has none of them); so do
 the held-out validation modules of train/ (the metrics and in-training
-evaluators, the dataset readers, the corruptions and the val CLI) and
+evaluators, the dataset readers, the corruptions and the val CLI), the
+training modules (the assigner, the losses, the train step, the device
+augmentations and the train CLI) and
 scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
 scripts/torch_robustness.py. Every module of the package loads with them
 blocked."""
@@ -68,7 +70,9 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.teams.hybrid", "hockey_tpu_torch.teams.robust",
     "hockey_tpu_torch.teams.interactive", "hockey_tpu_torch.core.session",
     "hockey_tpu_torch.multiclip", "hockey_tpu_torch.video.io",
-    "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data")
+    "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data",
+    "hockey_tpu_torch.train.loop", "hockey_tpu_torch.train.trainer",
+    "hockey_tpu_torch.train.losses", "hockey_tpu_torch.train.assigner")
 
 # the modules of the later slices: each loads alone with the imports blocked
 SLICE_MODULES = (
@@ -79,7 +83,11 @@ SLICE_MODULES = (
     "hockey_tpu_torch.annotate.manager", "hockey_tpu_torch.models.manager",
     # held-out validation
     "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data",
-    "hockey_tpu_torch.train.corruptions", "hockey_tpu_torch.train.val")
+    "hockey_tpu_torch.train.corruptions", "hockey_tpu_torch.train.val",
+    # training
+    "hockey_tpu_torch.train.assigner", "hockey_tpu_torch.train.losses",
+    "hockey_tpu_torch.train.trainer", "hockey_tpu_torch.train.device_aug",
+    "hockey_tpu_torch.train.loop")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke

@@ -166,14 +166,37 @@ Phases, each announced on its own line with the elapsed seconds:
    one. It prints train-step ms and images/s (device-data against host),
    peak memory, the kernel's launches and times at both sites and the
    phase's seconds as one JSON line;
-14. the kernel table as one JSON line (every site timed in this run under
+14. the JAX package's default CLI invocations, the converters and the
+   last trainers: (a) `hockey_tpu_torch.train.loop` with no data flag
+   (YOLOv8x, 640, batch 16, bf16, cold, on SyntheticHockeyDataset drawn
+   in numpy) for DEFAULT_TRAIN_STEPS steps, every loss finite, the
+   checkpoint equal to the trained model and loading back; (b)
+   `hockey_tpu_torch.train.val` with no flag (the shipped player model on
+   the JAX CLI's 50 synthetic images), mAP50 and mAP50-95 within VAL_TOL
+   of the JAX CLI's f32 figures (JAX_SYNTHETIC_F32), 7 kernel launches,
+   the kernel's kept set equal to the plain one at site `val_synthetic`;
+   (c) the shipped player weights through an ultralytics-layout state
+   dict and `convert_state_dict`: detections of one batch through
+   `detect_frames` and the kept sets bit-equal to the shipped model's, and
+   the shipped team embedder through a torchvision state dict and
+   `convert_torchvision`: embeddings bit-equal; (d) the embedder's
+   training step at the JAX defaults (48 designs, 64x32, f32) on
+   numpy-drawn pairs: the card's two steps against the CPU's (loss,
+   gradients, each leaf's update), EMBED_STEPS steps whose pair accuracy
+   must rise by EMBED_ACC_RISE, then `calibrate_bn`; (e) the digit net's
+   (batch 128, 48x48 grey) likewise, then DIGIT_STEPS steps from cold
+   whose loss must fall below DIGIT_LOSS_FRAC of its start; its times and
+   checks as one JSON line;
+15. the kernel table as one JSON line (every site timed in this run under
    `sites`), then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
 hockey_tpu_torch package beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -200,7 +223,12 @@ from hockey_tpu_torch.homography.keypoints import (  # noqa: E402
     keypoints_from_array,
 )
 from hockey_tpu_torch.homography.stabilizer import homography_distance  # noqa: E402
-from hockey_tpu_torch.models.checkpoint import load_params, shipped_weights_path  # noqa: E402
+from hockey_tpu_torch.models.checkpoint import (  # noqa: E402
+    load_params,
+    save_params,
+    shipped_weights_path,
+)
+from hockey_tpu_torch.models.convert import BACKBONE_IDX, convert_state_dict  # noqa: E402
 from hockey_tpu_torch.models.detector import (  # noqa: E402
     DetectCore,
     Detector,
@@ -211,7 +239,12 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
 )
 from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
 from hockey_tpu_torch.models.layers import fuse_for_inference, trainable  # noqa: E402
-from hockey_tpu_torch.models.mobilenetv3 import build_embedder, embed  # noqa: E402
+from hockey_tpu_torch.models.mobilenetv3 import (  # noqa: E402
+    build_embedder,
+    convert_torchvision,
+    embed,
+)
+from hockey_tpu_torch.models.mobilenetv3 import init_params as embed_init_params  # noqa: E402
 from hockey_tpu_torch.models.mobilenetv3 import \
     load_default_params as load_embed_params  # noqa: E402
 from hockey_tpu_torch.multiclip import MultiClipProcessor  # noqa: E402
@@ -225,7 +258,12 @@ from hockey_tpu_torch.models.yolov8 import (  # noqa: E402
     params_to_jax,
 )
 from hockey_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
-from hockey_tpu_torch.ocr.digits import DigitNet, load_default_params  # noqa: E402
+from hockey_tpu_torch.ocr.digits import (  # noqa: E402
+    DigitNet,
+    DigitTrainer,
+    init_digit_params,
+    load_default_params,
+)
 from hockey_tpu_torch.ops.iou import box_iou  # noqa: E402
 from hockey_tpu_torch.ops.nms import nms_select, suppression_matrix  # noqa: E402
 from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
@@ -244,6 +282,7 @@ from hockey_tpu_torch.slicing.sahi import MERGE_MAX_DET, SlicedDetector  # noqa:
 from hockey_tpu_torch.teams.base import host_crops, standardize_crops  # noqa: E402
 from hockey_tpu_torch.teams.facade import TeamClassifier  # noqa: E402
 from hockey_tpu_torch.teams.hybrid import HybridTeamClassifier  # noqa: E402
+from hockey_tpu_torch.teams.embed_train import EmbedTrainer  # noqa: E402
 from hockey_tpu_torch.teams.robust import RobustTeamClassifier  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
@@ -254,7 +293,12 @@ from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
 from hockey_tpu_torch.models.yolov8 import MODEL_ZOO  # noqa: E402
 from hockey_tpu_torch.models.checkpoint import flatten_tree  # noqa: E402
 from hockey_tpu_torch.train import loop as train_loop  # noqa: E402
-from hockey_tpu_torch.train.data import PoolDataset, pad_targets  # noqa: E402
+from hockey_tpu_torch.train import val as train_val  # noqa: E402
+from hockey_tpu_torch.train.data import (  # noqa: E402
+    PoolDataset,
+    SyntheticHockeyDataset,
+    pad_targets,
+)
 from hockey_tpu_torch.train.losses import detection_loss  # noqa: E402
 from hockey_tpu_torch.train.trainer import (  # noqa: E402
     TrainConfig,
@@ -326,6 +370,30 @@ TRAIN_POOL, TRAIN_VAL = 32, 16
 TRAIN_STEPS_DEVICE, TRAIN_STEPS_HOST, TRAIN_LR = 6, 2, 0.001
 TRAIN_MAP_DROP = 0.1
 LEARN_SIZE, LEARN_STEPS = 320, 120
+# phase 14. (a): steps of the default train CLI. (b): the JAX val CLI's
+# f32 figures on its default set (50 SyntheticHockeyDataset images at 640,
+# the shipped player model), which the card's must meet within VAL_TOL:
+# `JAX_PLATFORMS=cpu python scripts/jax_val.py --f32 -- --cpu --json`
+# (logs/torch_e2e/val/jax_cpu_f32_synthetic.json). (d), (e): the card's
+# f32 step (TF32 off, forward and backward) against the CPU's: loss within
+# CARD_LOSS_RTOL relative, every gradient within CARD_GRAD_TOL of the
+# largest, each leaf's update (Adam's, so a leaf's own scale) within
+# CARD_UPDATE_TOL of its own (L2). The embedder's forward agrees to
+# 8.6e-6 of its scale, but its backward through 34 batch-statistics BNs
+# (96 values each at the 2x1 maps) differs by up to 3.2e-3 of the
+# largest gradient (a leaf's cosine down to 0.99978 where its gradient is
+# small) and Adam's second update by 2.1e-2 (the card's first runs); the
+# digit net, without BN, agrees to 3.1e-7. Steps of the short
+# runs; the least rise of the embedder's pair accuracy (mean of the last
+# 10 steps against the first 10) and the most the digit net's loss may
+# keep of its first 10 steps' mean (CPU rehearsals: +0.13 and +0.17 over
+# 60 and 80 steps; 0.64 over 150 steps; the card's first run, 60 steps:
+# +0.0542)
+DEFAULT_TRAIN_STEPS = 3
+JAX_SYNTHETIC_F32 = {"mAP50": 0.0, "mAP50_95": 0.0}
+CARD_LOSS_RTOL, CARD_GRAD_TOL, CARD_UPDATE_TOL = 1e-4, 1e-2, 5e-2
+EMBED_STEPS, EMBED_ACC_RISE = 80, 0.05
+DIGIT_STEPS, DIGIT_LOSS_FRAC = 150, 0.85
 
 
 def phase(name: str) -> None:
@@ -1881,10 +1949,10 @@ def full_width_runs(tmp, max_err):
 
     before = held_out(build_model(cfg, start))
     common = ["--model", name, "--imgsz", "640", "--batch", "16", "--init", init,
-              "--ema", "0.999", "--precise-bn", "2", "--val-pool", val,
+              "--ema", "0.999", "--precise-bn", "2", "--val-pool-file", val,
               "--val-size", str(TRAIN_VAL), "--lr", str(TRAIN_LR), "--log-every", "1",
               "--save-every", "0", "--mosaic", "1.0", "--mixup", "0.15",
-              "--pool", pool]
+              "--pool-file", pool]
     runs, launches = {}, {}
     for tag, steps, extra in (("device", TRAIN_STEPS_DEVICE, ["--device-data"]),
                               ("host", TRAIN_STEPS_HOST, [])):
@@ -2013,9 +2081,9 @@ def pose_run(tmp, max_err):
     run = train_loop.run(["--model", name, "--imgsz", str(s), "--batch", "8",
                           "--steps", "3", "--init", shipped_weights_path(name),
                           "--device-data", "--precise-bn", "1", "--val-every", "3",
-                          "--val-pool", val, "--val-size", str(BATCH), "--lr",
+                          "--val-pool-file", val, "--val-size", str(BATCH), "--lr",
                           str(TRAIN_LR), "--log-every", "1", "--save-every", "0",
-                          "--pool", pool, "--out", os.path.join(tmp, "pose.msgpack")])
+                          "--pool-file", pool, "--out", os.path.join(tmp, "pose.msgpack")])
     launches = suppress.launches
     if run.rc != 0:
         raise AssertionError(f"(d): rc {run.rc}")
@@ -2050,6 +2118,391 @@ def training_phase(card, max_err):
     out["kernel_launches"] = launches_b + launches_c + launches_d
     out["phase_s"] = round(time.perf_counter() - t0, 2)
     print(json.dumps({"training": out}), flush=True)
+    return out["kernel_launches"], max_err
+
+
+# --------------------------------------------------------------------------
+# phase 14: the JAX CLIs' default invocations, the weight converters and
+# the last trainers (team embedder, jersey digits)
+
+def ultralytics_state_dict(tree, prefix="model."):
+    """A JAX-layout YOLOv8 tree as an ultralytics DetectionModel state
+    dict (`convert_state_dict`'s inverse; tests/test_torch_convert.py
+    keeps its own copy)."""
+    sd = {}
+
+    def conv(node, mp):
+        sd[f"{mp}.conv.weight"] = np.ascontiguousarray(node["w"].transpose(3, 2, 0, 1))
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"), ("var", "running_var")):
+            sd[f"{mp}.bn.{theirs}"] = node["bn"][ours]
+
+    for idx, (group, name) in BACKBONE_IDX.items():
+        node, mp = tree[group][name], f"{prefix}{idx}"
+        if name.startswith(("stem", "down")):
+            conv(node, mp)
+            continue
+        conv(node["cv1"], f"{mp}.cv1")
+        conv(node["cv2"], f"{mp}.cv2")
+        for i, m in enumerate(node.get("m", [])):
+            conv(m["cv1"], f"{mp}.m.{i}.cv1")
+            conv(m["cv2"], f"{mp}.m.{i}.cv2")
+    for theirs, ours in (("cv2", "reg"), ("cv3", "cls"), ("cv4", "kpt")):
+        for lvl, br in enumerate(tree["head"].get(ours, [])):
+            mp = f"{prefix}22.{theirs}.{lvl}"
+            conv(br["cv1"], f"{mp}.0")
+            conv(br["cv2"], f"{mp}.1")
+            sd[f"{mp}.2.weight"] = np.ascontiguousarray(br["out"]["w"].transpose(3, 2, 0, 1))
+            sd[f"{mp}.2.bias"] = br["out"]["b"]
+    return sd
+
+
+def torchvision_state_dict(tree):
+    """A MobileNetV3 tree as a torchvision mobilenet_v3_small state dict
+    (`convert_torchvision`'s inverse)."""
+    sd = {}
+
+    def conv_bn(node, prefix):
+        sd[f"{prefix}.0.weight"] = np.ascontiguousarray(node["w"].transpose(3, 2, 0, 1))
+        for ours, theirs in (("scale", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"), ("var", "running_var")):
+            sd[f"{prefix}.1.{theirs}"] = node["bn"][ours]
+
+    conv_bn(tree["stem"], "features.0")
+    for i, b in enumerate(tree["blocks"], start=1):
+        j, base = 0, f"features.{i}.block"
+        for part in ("expand", "dw", "se", "project"):
+            if part not in b:
+                continue
+            if part == "se":
+                for fc in ("fc1", "fc2"):
+                    sd[f"{base}.{j}.{fc}.weight"] = np.ascontiguousarray(
+                        b["se"][fc]["w"].transpose(3, 2, 0, 1))
+                    sd[f"{base}.{j}.{fc}.bias"] = b["se"][fc]["b"]
+            else:
+                conv_bn(b[part], f"{base}.{j}")
+            j += 1
+    conv_bn(tree["head"], "features.12")
+    return sd
+
+
+def numpy_pair_batch(rng, n, h=64, w=32):
+    """Two views of each of n jersey designs drawn in numpy: the five
+    patterns of teams/embed_train.py (solid, hoops, stripes, sash, yoke)
+    without the number; each view at its own size (48-119 px tall, half
+    as wide), shifted, under its own gain, bias and noise, resized to
+    (h, w) by nearest neighbour. BGR uint8 (n, h, w, 3) twice."""
+    views = ([], [])
+    for _ in range(n):
+        base, second = rng.uniform(0, 255, 3), rng.uniform(0, 255, 3)
+        while np.abs(base - second).sum() < 120:
+            second = rng.uniform(0, 255, 3)
+        pattern = int(rng.integers(0, 5))
+        for out in views:
+            s = int(rng.integers(48, 120))
+            sw = s // 2
+            img = np.empty((s, sw, 3), np.float32)
+            img[:] = base
+            if pattern == 1:    # hoops
+                period = max(s // int(rng.integers(4, 7)), 3)
+                img[(np.arange(s) // period) % 2 == 0] = second
+            elif pattern == 2:  # vertical stripes
+                period = max(sw // int(rng.integers(3, 6)), 2)
+                img[:, (np.arange(sw) // period) % 2 == 0] = second
+            elif pattern == 3:  # sash
+                yy, xx = np.mgrid[0:s, 0:sw]
+                img[np.abs(yy - xx * (s / sw)) < s * 0.18] = second
+            elif pattern == 4:  # yoke
+                img[: int(s * 0.3)] = second
+            img = np.roll(img, (int(rng.integers(-(s // 10), s // 10 + 1)),
+                                int(rng.integers(-(sw // 10), sw // 10 + 1))), (0, 1))
+            img = (img * rng.uniform(0.6, 1.3) + rng.uniform(-25, 25)
+                   + rng.normal(0, rng.uniform(1, 8), img.shape))
+            ys, xs = (np.arange(h) * s) // h, (np.arange(w) * sw) // w
+            out.append(np.clip(img[ys][:, xs], 0, 255).astype(np.uint8))
+    return np.stack(views[0]), np.stack(views[1])
+
+
+GLYPHS = ("01110100011001110101110011000101110", "00100011000010000100001000010001110",
+          "01110100010000100010001000100011111", "11110000010000101110000010000111110",
+          "00010001100101010010111110001000010", "11111100001111000001000011000101110",
+          "00110010001000011110100011000101110", "11111000010001000100010000100001000",
+          "01110100011000101110100011000101110", "01110100011000101111000010001001100")
+
+
+def numpy_digit_batch(rng, n, crop=48):
+    """n jersey-number crops drawn in numpy: one or two 5x7 bitmap digits
+    (single digits 45% of the time, as ocr/digits.py draws them) at 2-4 px
+    a cell, anywhere on a flat jersey of another shade, with noise, then
+    stretched between the 5th and 95th percentiles as `normalize_crop`
+    does. ((n, crop, crop, 1) f32, tens labels (10: none), ones labels)."""
+    xs, tens, ones = [], [], []
+    for _ in range(n):
+        number = int(rng.integers(1, 10)) if rng.uniform() < 0.45 else int(rng.integers(10, 100))
+        digits = [int(c) for c in str(number)]
+        glyph = np.zeros((7, 6 * len(digits) - 1), np.float32)
+        for j, d in enumerate(digits):
+            glyph[:, 6 * j: 6 * j + 5] = np.asarray(list(GLYPHS[d]), np.float32).reshape(7, 5)
+        k = int(rng.integers(2, 5))
+        glyph = np.kron(glyph, np.ones((k, k), np.float32))
+        bg = rng.uniform(0, 255)
+        fg = (bg + rng.uniform(80, 175)) % 256
+        img = np.full((crop, crop), bg, np.float32)
+        y0 = int(rng.integers(0, crop - glyph.shape[0] + 1))
+        x0 = int(rng.integers(0, crop - glyph.shape[1] + 1))
+        img[y0:y0 + glyph.shape[0], x0:x0 + glyph.shape[1]][glyph > 0] = fg
+        img = img + rng.normal(0, rng.uniform(2, 9), img.shape)
+        lo, hi = np.percentile(img, 5), np.percentile(img, 95)
+        xs.append(np.clip((img - lo) / max(hi - lo, 1.0), 0, 1)[..., None])
+        tens.append(number // 10 if number >= 10 else 10)
+        ones.append(number % 10)
+    return (np.stack(xs).astype(np.float32), np.asarray(tens, np.int32),
+            np.asarray(ones, np.int32))
+
+
+def default_training(tmp):
+    """(a): `python -m hockey_tpu_torch.train.loop` with no data flag, the
+    JAX CLI's defaults (YOLOv8x, 640, batch 16, bf16, cold init,
+    SyntheticHockeyDataset, precise-BN 8) for DEFAULT_TRAIN_STEPS steps."""
+    out_path = os.path.join(tmp, "model.msgpack")
+    suppress.launches = 0
+    t = time.perf_counter()
+    run = train_loop.run(["--steps", str(DEFAULT_TRAIN_STEPS), "--log-every", "1",
+                          "--out", out_path])
+    wall = time.perf_counter() - t
+    if run.rc != 0 or len(run.history) != DEFAULT_TRAIN_STEPS:
+        raise AssertionError(f"(a): rc {run.rc}, {len(run.history)} steps")
+    check_history("(a)", run.history, ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                       "grad_norm"))
+    saved = load_params(out_path)
+    now, back = flatten_tree(params_to_jax(run.trainer.model)), flatten_tree(saved)
+    if now.keys() != back.keys() or not all(
+            np.isfinite(back[k]).all() if k[-1] in ("mean", "var")
+            else np.array_equal(back[k], now[k]) for k in now):
+        raise AssertionError("(a): the checkpoint is not the trained model")
+    name = Config().player_model_name
+    model = build_model(MODEL_ZOO[name], saved).to("cuda")  # loads back, strict
+    with torch.inference_mode():
+        raw = forward_raw(model, torch.rand(1, 640, 640, 3, device="cuda"))
+    if not all(torch.isfinite(v).all() for maps in raw.values() for v in maps):
+        raise AssertionError("(a): the saved model's forward is not finite")
+    ms, ips = step_rate(run.history, 16)
+    out = {"argv": "--steps 3 (every other flag at its default)",
+           "model": "YOLOv8x (hockey-player-detection), 640, batch 16, bf16, cold",
+           "losses": [round(m["loss"], 4) for m in run.history],
+           "step_ms": [round(m["ms"], 3) for m in run.history],
+           "ms_per_step_after_first": round(ms, 3), "images_per_s": round(ips, 2),
+           "wall_s": round(wall, 2), "kernel_launches": suppress.launches}
+    print(f"(a) the default train CLI: {out}", flush=True)
+    return out
+
+
+def default_validation(config, max_err):
+    """(b): `python -m hockey_tpu_torch.train.val` with no flag: the
+    shipped player model on the JAX CLI's 50 SyntheticHockeyDataset
+    images (seed 0, 640), held to the JAX CLI's f32 figures; the kernel
+    at site `val_synthetic` on the last 8 images."""
+    buf = io.StringIO()
+    suppress.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_val.main(["--json"])
+    wall, launches = time.perf_counter() - t, suppress.launches
+    m = json.loads(buf.getvalue().strip().splitlines()[-1])
+    gap = {k: abs(m[k] - JAX_SYNTHETIC_F32[k]) for k in ("mAP50", "mAP50_95")}
+    out = {"metrics": m, "jax_cpu_f32": JAX_SYNTHETIC_F32, "gap": gap,
+           "images": 50, "wall_s": round(wall, 3),
+           "images_per_s": round(50 / wall, 2), "kernel_launches": launches}
+    print(f"(b) the default val CLI: {out}", flush=True)
+    if rc != 0 or launches != 7:  # 50 images: 7 batches of 8, the last padded
+        raise AssertionError(f"(b): rc {rc}, {launches} kernel launches")
+    if max(gap.values()) > VAL_TOL:
+        raise AssertionError(f"(b): mAP off the JAX CLI's by {gap}")
+    ds = SyntheticHockeyDataset(imgsz=640, seed=0)
+    last = np.stack([(ds.load(i)["images"] * 255).astype(np.uint8) for i in range(42, 50)])
+    det = Detector(config.player_model_name, config, frame_hw=(640, 640), imgsz=640,
+                   conf=0.001, device="cuda", dtype=torch.bfloat16)
+    max_err = kernel_on_batch("val_synthetic (the default val CLI)", det.core,
+                              det.model, last, max_err, site="val_synthetic")
+    return out, launches, max_err
+
+
+def converters(config, vp, frames, tmp):
+    """(c): the shipped player weights through an ultralytics state dict
+    and `convert_state_dict` give bit-equal detections and kept sets; the
+    shipped team embedder through a torchvision state dict and
+    `convert_torchvision` gives bit-equal embeddings."""
+    name = config.player_model_name
+    shipped = load_params(shipped_weights_path(name))
+    t = time.perf_counter()
+    tree = convert_state_dict(ultralytics_state_dict(shipped), MODEL_ZOO[name])
+    convert_s = time.perf_counter() - t
+    path = os.path.join(tmp, "converted.msgpack")
+    save_params(path, tree)
+    det2 = Detector(name, config, frame_hw=FRAME_HW, checkpoint=path, device="cuda",
+                    dtype=torch.bfloat16)
+    vp2 = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
+                         mode=ProcessingMode.PLAYER_DETECTION, player_detector=det2)
+    batch = frames[:BATCH]
+    suppress.launches = 0
+    got = list(vp2.detect_frames(batch))
+    launches = suppress.launches
+    want = list(vp.detect_frames(batch))
+    same = all(np.array_equal(g.boxes, w.boxes) and np.array_equal(g.scores, w.scores)
+               and np.array_equal(g.classes, w.classes) for g, w in zip(got, want))
+    with torch.inference_mode():
+        x = torch.as_tensor(batch).cuda()
+        kept = [suppress(c.matrix, c.keep0, c.thr) for c in (
+            d.core.candidates(d.model, x) for d in (vp.player_detector, det2))]
+    same_kept = torch.equal(*kept)
+    emb_shipped = load_embed_params()
+    emb = convert_torchvision(torchvision_state_dict(emb_shipped))
+    crops = torch.from_numpy(np.random.default_rng(71).integers(
+        0, 256, (32, 64, 32, 3)).astype(np.uint8)).cuda()
+    same_embed = torch.equal(embed(build_embedder(emb, "cuda"), crops),
+                             embed(build_embedder(emb_shipped, "cuda"), crops))
+    out = {"detections_bit_equal": same, "kept_sets_bit_equal": same_kept,
+           "boxes": sum(len(g) for g in got), "embeddings_bit_equal": same_embed,
+           "convert_s": round(convert_s, 3), "kernel_launches": launches}
+    print(f"(c) converters: {out}", flush=True)
+    if not (same and same_kept and same_embed and out["boxes"] > 0 and launches == 1):
+        raise AssertionError(f"(c): {out}")
+    return out, launches
+
+
+def card_and_cpu_steps(make, b1, b2):
+    """Two steps of a trainer made by make(device) on the card and on
+    the CPU from the same tree and batches: the first (lr 0) compares the
+    loss and the gradients, the second each leaf's update. Leaves whose
+    CPU gradient is rounding noise (at most 1e-4 of the largest: BN
+    biases before a batch-statistics BN, 0 in exact arithmetic) are left
+    out of the cosines and the updates."""
+    card, cpu = make("cuda"), make("cpu")
+    lc, _, gc = card.grads(*b1)
+    lp, _, gp = cpu.grads(*b1)
+    names = card.names
+    scale = max(float(g.abs().max()) for g in gp if g is not None)
+    noise = [p is not None and float(p.abs().max()) <= 1e-4 * scale for p in gp]
+    grad_err, cos = 0.0, {}
+    for n, c, p, nz in zip(names, gc, gp, noise):
+        if p is None:
+            continue
+        c, p = c.cpu().double().flatten(), p.double().flatten()
+        grad_err = max(grad_err, float((c - p).abs().max()) / scale)
+        if not nz:
+            cos[n] = float(c @ p) / max(float(c.norm() * p.norm()), 1e-300)
+    card.opt.step(gc)
+    cpu.opt.step(gp)
+    before = [(c.detach().cpu().clone(), p.detach().clone())
+              for c, p in zip(card.leaves, cpu.leaves)]
+    l2c, _ = card.step(*b2)
+    l2p, _ = cpu.step(*b2)
+    upd, upd_at = 0.0, None
+    for n, (c0, p0), c, p, nz in zip(names, before, card.leaves, cpu.leaves, noise):
+        dc, dp = c.detach().cpu() - c0, p.detach() - p0
+        if not nz and float(dp.norm()) > 0:
+            r = float((dc - dp).norm() / dp.norm())
+            upd, upd_at = (r, n) if r > upd else (upd, upd_at)
+    worst = min(cos, key=cos.get)
+    return card, {"loss_rel_diff": [abs(float(lc) - float(lp)) / abs(float(lp)),
+                                    abs(l2c - l2p) / abs(l2p)],
+                  "grad_max_diff_of_largest": grad_err,
+                  "grad_min_cosine": cos[worst], "grad_min_cosine_at": worst,
+                  "update_rel_diff_max": upd, "update_rel_diff_max_at": upd_at,
+                  "noise_leaves": int(sum(noise))}
+
+
+def check_card_step(tag, cmp):
+    if (max(cmp["loss_rel_diff"]) > CARD_LOSS_RTOL or cmp["grad_max_diff_of_largest"]
+            > CARD_GRAD_TOL or cmp["update_rel_diff_max"] > CARD_UPDATE_TOL):
+        raise AssertionError(f"{tag}: the card's step is not the CPU's: {cmp}")
+
+
+def embed_training(rng):
+    """(d): the embedder's step at the JAX defaults (48 designs, 64x32, f32,
+    from `init_params`) on numpy-drawn pairs: card against CPU, a short
+    run whose pair accuracy rises, then `calibrate_bn`."""
+    tree = embed_init_params(torch.Generator().manual_seed(0))
+    b1, b2 = numpy_pair_batch(rng, 48), numpy_pair_batch(rng, 48)
+    trainer, cmp = card_and_cpu_steps(lambda d: EmbedTrainer(tree, 1200, device=d), b1, b2)
+    accs, ms = [], []
+    for _ in range(EMBED_STEPS):
+        a, b = numpy_pair_batch(rng, 48)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, acc = trainer.step(a, b)  # syncs
+        ms.append(1e3 * (time.perf_counter() - t))
+        accs.append(acc)
+    first, last = float(np.mean(accs[:10])), float(np.mean(accs[-10:]))
+    trainer.calibrate([numpy_pair_batch(rng, 48)[0] for _ in range(16)])
+    params = trainer.params()
+    stats_ok = all(np.isfinite(v).all() for k, v in flatten_tree(params).items()
+                   if k[-1] in ("mean", "var"))
+    a, b = numpy_pair_batch(rng, 48)
+    net = build_embedder(params, "cuda")
+    za, zb = (torch.nn.functional.normalize(embed(net, torch.from_numpy(v).cuda()), dim=1)
+              for v in (a, b))
+    eval_acc = float(((za @ zb.T).argmax(1) == torch.arange(48, device="cuda")).float().mean())
+    step_ms = float(np.median(ms[1:]))
+    out = dict(cmp, steps=EMBED_STEPS, pair_acc_first10=round(first, 4),
+               pair_acc_last10=round(last, 4), pair_acc_rise=round(last - first, 4),
+               calibrated_eval_pair_acc=round(eval_acc, 4), stats_finite=stats_ok,
+               ms_per_step=round(step_ms, 3), images_per_s=round(96e3 / step_ms, 1))
+    print(f"(d) embedder training: {out}", flush=True)
+    check_card_step("(d)", cmp)
+    if last - first < EMBED_ACC_RISE or not stats_ok or not np.isfinite(eval_acc):
+        raise AssertionError(f"(d): {out}")
+    return out
+
+
+def digit_training(rng):
+    """(e): the digit net's step at the JAX defaults (batch 128, 48x48
+    grey, f32, cold) on numpy-drawn digits: card against CPU, then a short
+    run from cold on a drawn pool of 1024."""
+    tree = init_digit_params(torch.Generator().manual_seed(0))
+    x, t, o = numpy_digit_batch(rng, 1024)
+    b1, b2 = (x[:128], t[:128], o[:128]), (x[128:256], t[128:256], o[128:256])
+    trainer, cmp = card_and_cpu_steps(lambda d: DigitTrainer(tree, 3000, device=d), b1, b2)
+    losses, accs, ms = [], [], []
+    for _ in range(DIGIT_STEPS):
+        idx = rng.integers(0, len(x), 128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, acc = trainer.step(x[idx], t[idx], o[idx])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        accs.append(acc)
+    step_ms = float(np.median(ms[1:]))
+    out = dict(cmp, steps=DIGIT_STEPS, loss_first10=round(float(np.mean(losses[:10])), 4),
+               loss_last10=round(float(np.mean(losses[-10:])), 4),
+               exact_first10=round(float(np.mean(accs[:10])), 4),
+               exact_last10=round(float(np.mean(accs[-10:])), 4),
+               ms_per_step=round(step_ms, 3), images_per_s=round(128e3 / step_ms, 1))
+    print(f"(e) digit net training: {out}", flush=True)
+    check_card_step("(e)", cmp)
+    if not np.isfinite(losses).all() or out["loss_last10"] > DIGIT_LOSS_FRAC * out["loss_first10"]:
+        raise AssertionError(f"(e): {out}")
+    return out
+
+
+def slice10_phase(config, vp, frames, max_err):
+    """Phase 14; returns (kernel launches of its runs, max_err)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice10_")
+    try:
+        out["default_train"] = default_training(tmp)
+        out["default_val"], launches_b, max_err = default_validation(config, max_err)
+        out["converters"], launches_c = converters(config, vp, frames, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["embed_train"] = embed_training(rng)
+    out["digit_train"] = digit_training(rng)
+    out["kernel_at_sites"] = {"val_synthetic": SITES["val_synthetic"]}
+    out["kernel_launches"] = out["default_train"]["kernel_launches"] + launches_b + launches_c
+    out["phase_s"] = round(time.perf_counter() - t0, 2)
+    print(json.dumps({"slice10": out}), flush=True)
     return out["kernel_launches"], max_err
 
 
@@ -2338,7 +2791,12 @@ def main() -> int:
           "host; (c) a cold YOLOv8n learns; (d) YOLOv8s-pose 512")
     launches_tr, max_err = training_phase(card, max_err)
 
-    phase("14 results")
+    phase("14 the JAX CLIs' defaults and the last trainers: (a) train.loop with "
+          "no data flag; (b) train.val with no flag; (c) the converters; (d) the "
+          "embedder's step; (e) the digit net's step")
+    launches_14, max_err = slice10_phase(config, vp, frames, max_err)
+
+    phase("15 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
@@ -2347,7 +2805,7 @@ def main() -> int:
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
         "launches": (launches + launches_t + launches_c + launches_p + launches_r
                      + launches_k + launches_m + launches_s + launches_v
-                     + launches_tr),
+                     + launches_tr + launches_14),
         "max_abs_err": max_err,
         **main,
         "library_ms": None,

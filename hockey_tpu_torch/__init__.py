@@ -16,7 +16,11 @@ MobileNetV3 embeddings and the port's own clusterings),
 PUCK_DETECTION (`slicing/`) with the jersey-number OCR (`ocr/`), the
 rink keypoints and 2D map (`models/dual.py`, `homography/`, `rinkmap/`),
 and the serving entry points: run state and resume (`core/session.py`),
-multi-clip lockstep (`multiclip.py`) and the CLI's metrics and traces.
+multi-clip lockstep (`multiclip.py`) and the CLI's metrics and traces;
+held-out validation and training (`train/`: the val and train CLIs,
+the scene generators A and B, the synthetic datasets), the team
+embedder's and the jersey-digit net's training (`teams/embed_train.py`,
+`ocr/digits.py`) and the weight converters (`models/convert.py`).
 """
 
 __version__ = "0.1.0"

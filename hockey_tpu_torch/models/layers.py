@@ -85,12 +85,12 @@ class Conv(nn.Module):
         return F.silu(y) if self.act else y
 
 
-def trainable(model: nn.Module) -> nn.Module:
-    """The training form, in place: every Conv's `w`, `b` and BN `scale`
-    and `bias` become parameters (the running statistics stay buffers).
-    Returns `model`."""
+def trainable(model: nn.Module, kinds=(Conv,)) -> nn.Module:
+    """The training form, in place: every conv's (a module of `kinds`,
+    holding `w`, `b` and `bn`) `w`, `b` and BN `scale` and `bias` become
+    parameters (the running statistics stay buffers). Returns `model`."""
     for m in model.modules():
-        if isinstance(m, Conv):
+        if isinstance(m, kinds):
             for owner, name in ((m, "w"), (m, "b"), (m.bn, "scale"), (m.bn, "bias")):
                 t = None if owner is None else getattr(owner, name)
                 if t is not None and not isinstance(t, nn.Parameter):

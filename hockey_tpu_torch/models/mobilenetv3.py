@@ -15,13 +15,20 @@ at load. It runs in f32 with TF32 off, as the JAX `embed` runs f32 convs
 at `Precision.HIGHEST`. `init_params` draws a random tree from a
 `torch.Generator`; its values do not equal the JAX package's
 `jax.random` draws, and the shipped weights are the default.
-`calibrate_bn`, the batch-statistics path and `convert_torchvision` are
-training tools of the JAX module and are not ported.
+
+The training form (teams/embed_train.py): `build_trainable` keeps BN
+unfolded and makes the kernels, biases and BN affine parameters
+(`models/layers.py trainable`), so the serving path above is untouched.
+A forward given a `stats` list normalises each BN by its batch
+statistics (biased variance over N, H and W, in f32, eps 1e-3) and
+appends `(mean, var)` in call order, as the JAX `_conv_bn(stats=...)`
+does; `calibrate_bn` sets the running statistics from such forwards, and
+`convert_torchvision` maps a torchvision `mobilenet_v3_small` state dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -29,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .checkpoint import load_params, shipped_weights_path
-from .layers import BatchNorm, make_divisible
+from .layers import BatchNorm, make_divisible, trainable
 from .yolov8 import params_from_jax
 
 # (kernel, expanded, out, use_se, use_hswish, stride): torchvision
@@ -84,12 +91,17 @@ class ConvBN(nn.Module):
         self.b = self.bn.bias - self.bn.mean * scale
         self.bn = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None) -> torch.Tensor:
         y = F.conv2d(x, self.w, self.b, self.stride, self.pad, 1, self.groups)
         if self.bn is not None:
-            scale = self.bn.scale * torch.rsqrt(self.bn.var + BN_EPS)
+            if stats is None:
+                mean, var = self.bn.mean, self.bn.var
+            else:  # batch statistics, biased variance, in f32
+                var, mean = torch.var_mean(y.float(), dim=(0, 2, 3), unbiased=False)
+                stats.append((mean.detach(), var.detach()))
+            scale = self.bn.scale * torch.rsqrt(var + BN_EPS)
             y = (y * scale[:, None, None]
-                 + (self.bn.bias - self.bn.mean * scale)[:, None, None])
+                 + (self.bn.bias - mean * scale)[:, None, None])
         return y
 
 
@@ -120,20 +132,21 @@ class Block(nn.Module):
         self.project = ConvBN(exp, out)
         self.residual = stride == 1 and cin == out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None) -> torch.Tensor:
         y = x
         if self.expand is not None:
-            y = self.act(self.expand(y))
-        y = self.act(self.dw(y))
+            y = self.act(self.expand(y, stats))
+        y = self.act(self.dw(y, stats))
         if self.se is not None:
             y = self.se(y)
-        y = self.project(y)
+        y = self.project(y, stats)
         return y + x if self.residual else y
 
 
 class MobileNetV3(nn.Module):
     """(B, H, W, 3) ImageNet-normalised RGB f32 -> (B, 576) embeddings
-    (hockey_tpu mobilenetv3.py `embed`)."""
+    (hockey_tpu mobilenetv3.py `embed`). With `stats` a list, BN runs on
+    batch statistics and records them (the training forward)."""
 
     def __init__(self):
         super().__init__()
@@ -151,14 +164,19 @@ class MobileNetV3(nn.Module):
                 m.fold()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None) -> torch.Tensor:
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic, allow_tf32=False):
-            y = hswish(self.stem(x.permute(0, 3, 1, 2).contiguous()))
+            y = hswish(self.stem(x.permute(0, 3, 1, 2).contiguous(), stats))
             for b in self.blocks:
-                y = b(y)
-            return hswish(self.head(y)).mean(dim=(2, 3))
+                y = b(y, stats)
+            return hswish(self.head(y, stats)).mean(dim=(2, 3))
+
+    def bn_nodes(self) -> List[BatchNorm]:
+        """The BNs in the order a forward records their statistics."""
+        return [m.bn for m in self.modules()
+                if isinstance(m, ConvBN) and m.bn is not None]
 
 
 def init_params(generator: torch.Generator) -> Dict:
@@ -228,3 +246,83 @@ def embed(net: MobileNetV3, crops: torch.Tensor) -> torch.Tensor:
     """(N, h, w, 3) BGR crops on the net's device -> (N, 576) f32."""
     with torch.inference_mode():
         return net(preprocess_bgr(crops))
+
+
+# ---------------------------------------------------------------------------
+# The training form (hockey_tpu mobilenetv3.py:87-113, 152-176, 203-246)
+
+def build_trainable(params: Dict, device) -> MobileNetV3:
+    """The net from a JAX-layout tree on `device`, f32, BN unfolded, in
+    the training form: kernels, biases and BN `scale` and `bias` are
+    parameters, the running statistics buffers."""
+    net = MobileNetV3()
+    net.load_state_dict(params_from_jax(params), strict=True)
+    return trainable(net, (ConvBN,)).to(device)
+
+
+def calibrate_bn(net: MobileNetV3, batches: Iterable) -> MobileNetV3:
+    """Set the running statistics from batch-statistics forwards over
+    `batches` (preprocessed (B, H, W, 3) arrays or tensors), in place:
+    each BN's mean and var are the averages, in f64, of the batches' means
+    and variances (not pooled over all images), as the JAX
+    `calibrate_bn` computes them. Needed after batch-statistics training,
+    which tracks no running statistics."""
+    dev = next(net.parameters()).device
+    sums, n = None, 0
+    with torch.no_grad():
+        for x in batches:
+            stats: List = []
+            x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x, np.float32))
+            net(x.to(dev), stats=stats)
+            vals = [(m.cpu().double(), v.cpu().double()) for m, v in stats]
+            sums = vals if sums is None else [
+                (sm + m, sv + v) for (sm, sv), (m, v) in zip(sums, vals)]
+            n += 1
+        for bn, (m, v) in zip(net.bn_nodes(), sums):
+            bn.mean.copy_((m / n).float())
+            bn.var.copy_((v / n).float())
+    return net
+
+
+def convert_torchvision(sd) -> Dict:
+    """A torchvision `mobilenet_v3_small` state dict (tensors or numpy
+    arrays) -> the JAX-layout tree of f32 numpy arrays. torchvision's
+    `features.0` is the stem, `features.1`-`features.11` the blocks and
+    `features.12` the head conv; its classifier is dropped."""
+
+    def a(t):
+        if hasattr(t, "detach"):
+            t = t.detach().cpu().float().numpy()
+        return np.asarray(t, np.float32)
+
+    def cw(t):  # OIHW -> HWIO (depthwise: (exp, 1, k, k) -> (k, k, 1, exp))
+        return np.ascontiguousarray(np.transpose(a(t), (2, 3, 1, 0)))
+
+    def bn(prefix):
+        return {"scale": a(sd[f"{prefix}.weight"]), "bias": a(sd[f"{prefix}.bias"]),
+                "mean": a(sd[f"{prefix}.running_mean"]),
+                "var": a(sd[f"{prefix}.running_var"])}
+
+    def conv_bn(prefix):
+        return {"w": cw(sd[f"{prefix}.0.weight"]), "bn": bn(f"{prefix}.1")}
+
+    params: Dict = {"stem": conv_bn("features.0")}
+    blocks, cin = [], 16
+    for i, (k, exp, out, se, _, _) in enumerate(BLOCKS, start=1):
+        base, j, b = f"features.{i}.block", 0, {}
+        if exp != cin:
+            b["expand"] = conv_bn(f"{base}.{j}")
+            j += 1
+        b["dw"] = conv_bn(f"{base}.{j}")
+        j += 1
+        if se:
+            b["se"] = {fc: {"w": cw(sd[f"{base}.{j}.{fc}.weight"]),
+                            "b": a(sd[f"{base}.{j}.{fc}.bias"])}
+                       for fc in ("fc1", "fc2")}
+            j += 1
+        b["project"] = conv_bn(f"{base}.{j}")
+        blocks.append(b)
+        cin = out
+    params["blocks"] = blocks
+    params["head"] = conv_bn("features.12")
+    return params

@@ -7,18 +7,27 @@ weights, precise-BN, periodic checkpoints and validation with the best
 checkpoint kept. It trains on the card (`--device cuda`, the default,
 bf16 compute on f32 masters) or on the CPU (`--device cpu`, f32).
 
-The data is a YOLO-format directory (`--images`, needs cv2) or a pool in
-the `save_cache` format (`--pool PATH`, as the val CLI reads it; the JAX
-CLI's `--pool N` renders N scenes instead), held-out validation a second
-pool (`--val-pool PATH`). With `--device-data` the pool is staged in
-device memory and augmented there (train/device_aug.py); otherwise
-`batch_iterator` augments on the host. Checkpoints are the JAX package's
-msgpack trees (models/checkpoint.py `save_params`).
+The data, chosen in the JAX CLI's order:
+- `--images DIR`, a YOLO-format directory (needs cv2);
+- `--pool-file PATH`, a pool in the `save_cache` format (the port's
+  addition: a pool rendered elsewhere, e.g. by scripts/render_val_set.py);
+- a pose model: `SyntheticRinkDataset` (`--domain-rand`: its rich
+  scenes), held out at `--seed` + 7777 for `--val-every`;
+- `--dataset hard|hard-puck`, or `auto` with `--val-every`: generator A
+  (train/scenes.py `HardSyntheticHockeyDataset`), `--pool N` scenes
+  pre-rendered and cached in the temporary directory under a name of the
+  port's own, held out at `--seed` + 7777 (`--val-size` scenes, legacy
+  style);
+- otherwise `SyntheticHockeyDataset`, the JAX CLI's default, which draws
+  in numpy and so runs where cv2 is absent.
+Every choice but the last and `--pool-file` needs cv2. `--val-pool-file`
+replaces the held-out set. With `--device-data` the pool (at most
+`--pool` items of an unbounded dataset) is staged in device memory and
+augmented there (train/device_aug.py); otherwise `batch_iterator`
+augments on the host. Checkpoints are the JAX package's msgpack trees
+(models/checkpoint.py `save_params`).
 
-Flags whose code is not ported raise, naming the module: rendering
-(`--dataset hard|hard-puck|synthetic`, no `--images`/`--pool`,
-`--domain-rand`: the scene generators draw with cv2) and `--dp`/`--fsdp`
-above 1 (multi-device sharding).
+`--dp`/`--fsdp` above 1 raise: multi-device sharding is not ported.
 
 The collapse detector stays a tripwire: with gradients leaking through
 the assignment the model learns to predict nothing (TAL's degenerate
@@ -39,11 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train a hockey_tpu_torch YOLOv8 detector")
     p.add_argument("--images", type=str, default=None,
                    help="images/ dir of a YOLO-format dataset (labels/ sibling)")
-    p.add_argument("--pool", type=str, default=None,
+    p.add_argument("--pool-file", type=str, default=None,
                    help="a pre-rendered pool .npz (the save_cache format, "
                         "e.g. scripts/render_val_set.py) to train on")
-    p.add_argument("--val-pool", type=str, default=None,
-                   help="a held-out pool .npz for --val-every")
+    p.add_argument("--val-pool-file", type=str, default=None,
+                   help="a held-out pool .npz for --val-every (replaces "
+                        "the rendered held-out split)")
     p.add_argument("--model", type=str, default="hockey-player-detection")
     p.add_argument("--variant", type=str, default=None,
                    help="override variant (n/s/m/l/x), e.g. n for smoke tests")
@@ -66,12 +76,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dataset", type=str, default="auto",
                    choices=["auto", "hard", "hard-puck", "synthetic"],
-                   help="rendered datasets are not ported: give --pool")
+                   help="synthetic source without --images/--pool-file: "
+                        "'hard' = broadcast-like scenes (train/scenes.py), "
+                        "'hard-puck' = puck-labelled scenes, 'synthetic' "
+                        "(and 'auto' without --val-every) = rectangles")
+    p.add_argument("--pool", type=int, default=2000,
+                   help="pre-rendered scene pool size (hard datasets; the "
+                        "items --device-data stages of an unbounded one)")
     p.add_argument("--domain-rand", action="store_true",
-                   help="rendering option (not ported)")
+                   help="widen the hard-scene rendering family "
+                        "(scenes.sample_style); the held-out pool stays "
+                        "legacy-style. A pose model: rich rink scenes")
     p.add_argument("--val-every", type=int, default=0,
-                   help="evaluate mAP (PCK for a pose model) on --val-pool "
-                        "every N steps and keep the best checkpoint")
+                   help="evaluate mAP (PCK for a pose model) on held-out "
+                        "scenes every N steps and keep the best checkpoint")
     p.add_argument("--val-size", type=int, default=150)
     p.add_argument("--ema", type=float, default=0.0,
                    help="EMA decay for eval/checkpoint weights (e.g. 0.999)")
@@ -92,31 +110,91 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a flag whose code the port does not have."""
+    """Raise for a flag whose code the port does not have, or for flags
+    that contradict each other."""
     if args.dp > 1 or args.fsdp > 1:
         raise NotImplementedError(
             "--dp/--fsdp above 1 need multi-device sharding (hockey_tpu/core/"
             "mesh.py, hockey_tpu/parallel/sharding.py), which is not ported")
-    if args.domain_rand or args.dataset in ("hard", "hard-puck"):
-        raise NotImplementedError(
-            "rendered scenes (--dataset hard/hard-puck, --domain-rand) need "
-            "hockey_tpu/train/scenes.py HardSyntheticHockeyDataset, which is "
-            "not ported (it draws with cv2): render a pool on the CPU and "
-            "pass --pool")
-    if bool(args.images) == bool(args.pool):
-        if args.images:
-            raise ValueError("give one of --images or --pool, not both")
-        raise NotImplementedError(
-            "without --images or --pool the JAX CLI renders "
-            "hockey_tpu/train/data.py SyntheticHockeyDataset or "
-            "SyntheticRinkDataset, which are not ported (they draw with "
-            "cv2): pass --pool")
-    if args.dataset == "synthetic":
-        raise NotImplementedError(
-            "--dataset synthetic needs hockey_tpu/train/data.py "
-            "SyntheticHockeyDataset, which is not ported: pass --pool")
-    if args.val_every and not args.val_pool:
-        raise ValueError("--val-every needs --val-pool")
+    if args.images and args.pool_file:
+        raise ValueError("give one of --images or --pool-file, not both")
+
+
+def scene_cache_path(imgsz: int, pool: int, seed: int, pucks: bool,
+                     domain_rand: bool) -> str:
+    """Where a rendered generator-A pool is cached: the temporary
+    directory, under a name of the port's own keyed by the renderer's
+    version and the pool's parameters."""
+    import os
+    import tempfile
+
+    from .scenes import RENDERER_VERSION
+
+    return os.path.join(tempfile.gettempdir(), (
+        f"hockey_tpu_torch_scenes_v{RENDERER_VERSION}_{imgsz}_{pool}_"
+        f"{seed}_{int(pucks)}{'_dr' if domain_rand else ''}.npz"))
+
+
+def open_datasets(args, cfg):
+    """(training dataset, held-out dataset or None), chosen in the JAX
+    CLI's order (hockey_tpu/train/loop.py:108-163)."""
+    from .data import (PoolDataset, SyntheticHockeyDataset,
+                       SyntheticRinkDataset, YoloDataset)
+
+    val_dataset = None
+    if args.images:
+        dataset = YoloDataset(args.images, imgsz=args.imgsz)
+        print(f"dataset: {len(dataset)} images from {args.images}")
+    elif args.pool_file:
+        dataset = PoolDataset(args.pool_file)
+        if dataset.imgsz != args.imgsz:
+            raise ValueError(f"{args.pool_file} holds {dataset.imgsz}-px "
+                             f"images, --imgsz is {args.imgsz}")
+        print(f"dataset: pool of {len(dataset)} images from {args.pool_file}")
+    elif cfg.num_keypoints:
+        dataset = SyntheticRinkDataset(imgsz=args.imgsz, seed=args.seed,
+                                       rich=args.domain_rand)
+        if args.val_every:
+            # held-out seeds; rich as in training
+            val_dataset = SyntheticRinkDataset(
+                imgsz=args.imgsz, seed=args.seed + 7777, rich=args.domain_rand)
+        print("dataset: synthetic rink views (pose model, no --images, "
+              f"rich={args.domain_rand})")
+    elif args.dataset in ("hard", "hard-puck") or (
+            args.dataset == "auto" and args.val_every):
+        from .scenes import HardSyntheticHockeyDataset
+
+        pucks = args.dataset == "hard-puck"
+        dataset = HardSyntheticHockeyDataset(
+            imgsz=args.imgsz, seed=args.seed, pool_size=args.pool,
+            pucks=pucks, domain_rand=args.domain_rand)
+        # held-out split: disjoint seeds, legacy style
+        val_dataset = HardSyntheticHockeyDataset(
+            imgsz=args.imgsz, seed=args.seed + 7777,
+            pool_size=args.val_size, pucks=pucks)
+        print(f"dataset: hard synthetic scenes (pool {args.pool}, "
+              f"pucks={pucks}, domain_rand={args.domain_rand}); "
+              "pre-rendering...")
+        t = time.time()
+        cache = scene_cache_path(args.imgsz, args.pool, args.seed, pucks,
+                                 args.domain_rand)
+        if dataset.load_cache(cache):
+            print(f"loaded scene pool from {cache}")
+        else:
+            dataset.pregenerate()
+            dataset.save_cache(cache)
+        val_dataset.pregenerate()
+        print(f"pre-rendered {args.pool}+{args.val_size} scenes "
+              f"in {time.time() - t:.0f}s")
+    else:
+        dataset = SyntheticHockeyDataset(imgsz=args.imgsz, seed=args.seed)
+        print("dataset: synthetic (no --images given)")
+    if args.val_pool_file:
+        val_dataset = PoolDataset(args.val_pool_file)
+    if args.val_every and val_dataset is None:
+        raise ValueError("--val-every with --images, --pool-file or "
+                         "--dataset synthetic needs --val-pool-file")
+    return dataset, val_dataset
 
 
 @dataclasses.dataclass
@@ -145,7 +223,7 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
     from ..models.checkpoint import load_params, save_params
     from ..models.yolov8 import (MODEL_ZOO, YoloConfig, build_model, init_params,
                                  params_to_jax)
-    from .data import PoolDataset, YoloDataset, batch_iterator
+    from .data import batch_iterator
     from .trainer import TrainConfig, Trainer, batch_to, make_bn_stats_fn, precise_bn
 
     device = resolve_device(args.device)
@@ -164,16 +242,7 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
-    if args.images:
-        dataset = YoloDataset(args.images, imgsz=args.imgsz)
-        print(f"dataset: {len(dataset)} images from {args.images}")
-    else:
-        dataset = PoolDataset(args.pool)
-        if dataset.imgsz != args.imgsz:
-            raise ValueError(f"{args.pool} holds {dataset.imgsz}-px images, "
-                             f"--imgsz is {args.imgsz}")
-        print(f"dataset: pool of {len(dataset)} images from {args.pool}")
-    val_dataset = PoolDataset(args.val_pool) if args.val_pool else None
+    dataset, val_dataset = open_datasets(args, cfg)
 
     trainer = Trainer(cfg, tc, model, ema_decay=args.ema)
 
@@ -274,8 +343,10 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
         # runs on the device, the host sends nothing per step
         from .device_aug import make_device_batch_fn, make_pose_batch_fn, stage_pool
 
-        print(f"staging the pool ({len(dataset)} scenes) in device memory...")
-        pool = stage_pool(dataset, device=device)  # keypoints too, for pose
+        # an unbounded dataset (the synthetic ones): its first --pool items
+        n_pool = args.pool if len(dataset) >= 1 << 30 else len(dataset)
+        print(f"staging the pool ({n_pool} scenes) in device memory...")
+        pool = stage_pool(dataset, range(n_pool), device=device)  # keypoints too
         if cfg.num_keypoints:
             if args.mosaic or args.mixup:
                 print("note: --mosaic/--mixup are unsupported for pose "

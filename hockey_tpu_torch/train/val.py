@@ -6,11 +6,15 @@ and R overall and per class, or for the rink pose model PCK@0.05 and the
 mean keypoint error. `--json` prints the JAX CLI's keys, so the two
 lines compare key by key.
 
-The dataset is a YOLO-format directory (`--images`) or a pool rendered
-by scripts/render_val_set.py (`--pool`), in place of the JAX CLI's
-`--dataset` renderers, which need cv2 and the JAX scene generators. It
-runs on CUDA unless `--device cpu` is given; a CUDA run without a GPU
-raises.
+The dataset is a YOLO-format directory (`--images`), a pool rendered
+by scripts/render_val_set.py (`--pool`, the port's addition), or, as in
+the JAX CLI, one of the `--dataset` renderers at `--seed` (7777, the
+train CLI's held-out split for its `--seed 0`): `synthetic` (the
+default; 50 images at most, drawn in numpy without cv2), generator A's
+`hard` and `hard-puck`, generator B's `hard-b` and `hard-puck-b`, and for
+the rink pose model its sterile views, `rink-b` and `rink-rich`. All but
+`synthetic` need cv2. It runs on CUDA unless `--device cpu` is given; a
+CUDA run without a GPU raises.
 """
 
 from __future__ import annotations
@@ -35,24 +39,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conf", type=float, default=0.001)
     p.add_argument("--limit", type=int, default=200,
                    help="max images to evaluate")
+    p.add_argument("--dataset", type=str, default="synthetic",
+                   choices=["synthetic", "hard", "hard-puck",
+                            "hard-b", "hard-puck-b", "rink-b",
+                            "rink-rich"],
+                   help="rendered source without --images/--pool: 'hard' "
+                        "= generator A's held-out scenes (train/scenes.py), "
+                        "the '-b' variants generator B (train/scenes_b.py), "
+                        "out of distribution")
     p.add_argument("--seed", type=int, default=None,
-                   help="the scene seed the pool must have been rendered "
-                        "with (checked against the pool's record)")
+                   help="scene seed of --dataset (default 7777, the train "
+                        "CLI's held-out split for --seed 0); with --pool, "
+                        "the seed the pool must have been rendered with")
     p.add_argument("--json", action="store_true", help="print metrics as JSON")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default, bf16) or cpu (f32)")
     return p
 
 
-def open_dataset(args):
-    """(dataset, image count) of --images or --pool, at most --limit."""
-    from .data import PoolDataset, YoloDataset
+def open_dataset(args, pose: bool):
+    """(dataset, image count) of --images or --pool, at most --limit, or
+    else of the --dataset renderer, as the JAX CLI chooses it
+    (hockey_tpu/train/val.py:80-140)."""
+    from .data import PoolDataset, SyntheticHockeyDataset, SyntheticRinkDataset, YoloDataset
 
-    if bool(args.images) == bool(args.pool):
-        raise SystemExit("give exactly one of --images or --pool")
+    if args.images and args.pool:
+        raise SystemExit("give at most one of --images or --pool")
     if args.images:
         ds = YoloDataset(args.images, imgsz=args.imgsz)
-    else:
+        return ds, min(len(ds), args.limit)
+    if args.pool:
         ds = PoolDataset(args.pool)
         seed = ds.meta.get("seed")
         if args.seed is not None and seed is not None and seed != args.seed:
@@ -61,7 +77,34 @@ def open_dataset(args):
         if ds.imgsz != args.imgsz:
             raise SystemExit(f"{args.pool} holds {ds.imgsz}-px images, "
                              f"--imgsz is {args.imgsz}")
-    return ds, min(len(ds), args.limit)
+        return ds, min(len(ds), args.limit)
+    seed = 7777 if args.seed is None else args.seed
+    if pose:
+        if args.dataset == "rink-b":
+            from .scenes_b import SyntheticRinkDatasetB
+
+            return SyntheticRinkDatasetB(imgsz=args.imgsz, seed=seed), args.limit
+        if args.dataset == "rink-rich":
+            # held-out slice of the pose training family (rich scenes)
+            return SyntheticRinkDataset(imgsz=args.imgsz, seed=seed + 7777,
+                                        rich=True), args.limit
+        return SyntheticRinkDataset(imgsz=args.imgsz, seed=seed), args.limit
+    if args.dataset in ("hard", "hard-puck"):
+        from .scenes import HardSyntheticHockeyDataset
+
+        ds = HardSyntheticHockeyDataset(
+            imgsz=args.imgsz, seed=seed, pool_size=args.limit,
+            pucks=args.dataset == "hard-puck")
+    elif args.dataset in ("hard-b", "hard-puck-b"):
+        from .scenes_b import HardSyntheticHockeyDatasetB
+
+        ds = HardSyntheticHockeyDatasetB(
+            imgsz=args.imgsz, seed=seed, pool_size=args.limit,
+            pucks=args.dataset == "hard-puck-b")
+    else:  # the JAX CLI's synthetic set: seed 0, 50 images at most
+        return SyntheticHockeyDataset(imgsz=args.imgsz, seed=0), min(args.limit, 50)
+    ds.pregenerate()
+    return ds, args.limit
 
 
 def main(argv=None) -> int:
@@ -81,9 +124,10 @@ def main(argv=None) -> int:
         base = MODEL_ZOO[args.model]
         MODEL_ZOO[args.model] = YoloConfig(
             args.variant, base.num_classes, base.num_keypoints)
-    ds, n = open_dataset(args)
+    pose = bool(MODEL_ZOO[args.model].num_keypoints)
+    ds, n = open_dataset(args, pose)
 
-    if MODEL_ZOO[args.model].num_keypoints:
+    if pose:
         # pose model: PCK@0.05 and mean pixel error on held-out rink views
         from ..homography.keypoints import RinkKeypointDetector
 

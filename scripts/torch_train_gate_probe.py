@@ -120,10 +120,10 @@ def main() -> int:
 
     if not args.no_train:
         common = ["--model", NAME, "--imgsz", str(s), "--batch", "16", "--init", init,
-                  "--ema", "0.999", "--precise-bn", "2", "--val-pool", val,
+                  "--ema", "0.999", "--precise-bn", "2", "--val-pool-file", val,
                   "--val-size", str(TRAIN_VAL), "--lr", str(TRAIN_LR),
                   "--log-every", "1", "--save-every", "0", "--mosaic", "1.0",
-                  "--mixup", "0.15", "--pool", pool, "--device", str(device.type)]
+                  "--mixup", "0.15", "--pool-file", pool, "--device", str(device.type)]
         out["runs"] = {}
         for tag, extra in (("device", ["--device-data"]), ("host", [])):
             for steps in (2, 6):

@@ -10,10 +10,12 @@ without cv2, msgpack or sklearn (the GPU machine has none of them); so do
 the held-out validation modules of train/ (the metrics and in-training
 evaluators, the dataset readers, the corruptions and the val CLI), the
 training modules (the assigner, the losses, the train step, the device
-augmentations and the train CLI) and
-scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
+augmentations and the train CLI), the scene generators, the synthetic
+datasets and the last trainers (generators A and B, the weight
+converters, the embedder's and the digit net's training, the AdamW
+chain) and scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
 scripts/torch_robustness.py. Every module of the package loads with them
-blocked."""
+blocked, and none imports cv2 at module level."""
 
 import os
 import re
@@ -72,7 +74,9 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.multiclip", "hockey_tpu_torch.video.io",
     "hockey_tpu_torch.train.eval", "hockey_tpu_torch.train.data",
     "hockey_tpu_torch.train.loop", "hockey_tpu_torch.train.trainer",
-    "hockey_tpu_torch.train.losses", "hockey_tpu_torch.train.assigner")
+    "hockey_tpu_torch.train.losses", "hockey_tpu_torch.train.assigner",
+    "hockey_tpu_torch.train.val", "hockey_tpu_torch.models.convert",
+    "hockey_tpu_torch.teams.embed_train")
 
 # the modules of the later slices: each loads alone with the imports blocked
 SLICE_MODULES = (
@@ -87,7 +91,11 @@ SLICE_MODULES = (
     # training
     "hockey_tpu_torch.train.assigner", "hockey_tpu_torch.train.losses",
     "hockey_tpu_torch.train.trainer", "hockey_tpu_torch.train.device_aug",
-    "hockey_tpu_torch.train.loop")
+    "hockey_tpu_torch.train.loop",
+    # the scene generators, the synthetic datasets and the last trainers
+    "hockey_tpu_torch.train.scenes", "hockey_tpu_torch.train.scenes_b",
+    "hockey_tpu_torch.models.convert", "hockey_tpu_torch.teams.embed_train",
+    "hockey_tpu_torch.ocr.digits", "hockey_tpu_torch.train.optim")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke
@@ -161,4 +169,18 @@ def test_sources_name_no_forbidden_import():
         with open(path) as f:
             for m in _FORBIDDEN.finditer(f.read()):
                 hits.append(f"{os.path.relpath(path, ROOT)}: {m.group(0).strip()}")
+    assert not hits, hits
+
+
+_MODULE_LEVEL_CV2 = re.compile(r"^(import|from)\s+cv2(\.|\s|$)", re.MULTILINE)
+
+
+def test_no_module_level_cv2_import():
+    """cv2 is imported inside the functions that draw or decode, never at
+    a module's top level (the GPU machine has no OpenCV)."""
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            if _MODULE_LEVEL_CV2.search(f.read()):
+                hits.append(os.path.relpath(path, ROOT))
     assert not hits, hits

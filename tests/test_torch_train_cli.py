@@ -9,8 +9,9 @@ pools in the `save_cache` format (tests/test_train_cli.py's counterpart):
   the checkpoint;
 - `--device-data` for the detector and the pose model (a rink pool), and
   the pose model on the host path;
-- every flag whose code is not ported raises, naming the module, and the
-  default `--device cuda` raises without CUDA.
+- `--dp`/`--fsdp` above 1 raise, naming the modules, as do contradicting
+  data flags, and the default `--device cuda` raises without CUDA.
+The rendered datasets' choices are in tests/test_torch_synthetic_data.py.
 """
 
 import os
@@ -83,10 +84,10 @@ def _finite(history, keys=("loss", "box_loss", "cls_loss", "dfl_loss", "grad_nor
 
 def test_host_path_checkpoint_round_trip(pools, tmp_path, monkeypatch):
     out = str(tmp_path / "m.msgpack")
-    run = loop.run(SMALL + ["--pool", str(pools / "train.npz"), "--out", out,
+    run = loop.run(SMALL + ["--pool-file", str(pools / "train.npz"), "--out", out,
                             "--mosaic", "0.5", "--mixup", "0.2", "--ema", "0.999",
                             "--precise-bn", "2", "--val-every", "2",
-                            "--val-pool", str(pools / "val.npz"), "--val-size", "4"])
+                            "--val-pool-file", str(pools / "val.npz"), "--val-size", "4"])
     assert run.rc == 0
     _finite(run.history)
     assert [i for i, _ in run.val] == [2, 3] and run.best >= 0
@@ -120,7 +121,7 @@ def test_host_path_checkpoint_round_trip(pools, tmp_path, monkeypatch):
     ("hockey-detection", "rink.npz", []),
 ])
 def test_paths_train(pools, tmp_path, model, pool, extra):
-    run = loop.run(SMALL + ["--model", model, "--pool", str(pools / pool),
+    run = loop.run(SMALL + ["--model", model, "--pool-file", str(pools / pool),
                             "--out", str(tmp_path / "m.msgpack"),
                             "--precise-bn", "1"] + extra)
     assert run.rc == 0
@@ -132,23 +133,18 @@ def test_paths_train(pools, tmp_path, model, pool, extra):
 
 
 @pytest.mark.parametrize("argv,error,names", [
-    (["--dataset", "hard"], NotImplementedError, "scenes.py"),
-    (["--dataset", "hard-puck"], NotImplementedError, "scenes.py"),
-    (["--domain-rand"], NotImplementedError, "scenes.py"),
-    (["--dataset", "synthetic"], NotImplementedError, "SyntheticHockeyDataset"),
-    ([], NotImplementedError, "SyntheticRinkDataset"),
     (["--dp", "2"], NotImplementedError, "sharding.py"),
     (["--fsdp", "2"], NotImplementedError, "mesh.py"),
-    (["--val-every", "5"], ValueError, "--val-pool"),
+    (["--images", "x"], ValueError, "--images or --pool-file"),
+    (["--val-every", "5"], ValueError, "--val-pool-file"),
 ])
 def test_unported_flags_raise(pools, argv, error, names):
-    pool = [] if argv == [] or "synthetic" in argv else ["--pool", str(pools / "val.npz")]
     with pytest.raises(error, match=names):
-        loop.main(SMALL + pool + argv)
+        loop.main(SMALL + ["--pool-file", str(pools / "val.npz")] + argv)
 
 
 def test_default_device_needs_cuda(pools, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         loop.main([a for a in SMALL if a not in ("--device", "cpu")]
-                  + ["--pool", str(pools / "val.npz")])
+                  + ["--pool-file", str(pools / "val.npz")])

@@ -14,7 +14,8 @@ The JAX detectors are rebuilt at f32 on the BN-folded f32 weights (they
 fold and cast to bf16 even on the CPU); the port runs its CPU default,
 f32. The `--json` lines have the same keys, and the values agree within
 METRIC_TOL (tests/test_torch_eval.py); the CLI raises without CUDA
-unless given `--device cpu`.
+unless given `--device cpu`, and for two data sources. The `--dataset`
+renderers are in tests/test_torch_synthetic_data.py.
 """
 
 import json
@@ -153,8 +154,8 @@ def test_cli_needs_cuda_a_dataset_and_the_pool_seed(files, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tval.main(pool)
-    with pytest.raises(SystemExit, match="exactly one"):
-        tval.main(["--device", "cpu"])
+    with pytest.raises(SystemExit, match="at most one"):
+        tval.main(pool + ["--images", str(files), "--device", "cpu"])
     with pytest.raises(SystemExit, match="seed"):
         tval.main(pool + ["--device", "cpu", "--seed", str(SEED + 1)])
     with pytest.raises(SystemExit, match="px images"):

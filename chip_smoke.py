@@ -187,7 +187,27 @@ Phases, each announced on its own line with the elapsed seconds:
    (batch 128, 48x48 grey) likewise, then DIGIT_STEPS steps from cold
    whose loss must fall below DIGIT_LOSS_FRAC of its start; its times and
    checks as one JSON line;
-15. the kernel table as one JSON line (every site timed in this run under
+15. the host runtime and multi-device training and detection: (a)
+   tracking/native.py builds csrc/hockey_host.cpp with g++ into a fresh
+   directory (its build seconds printed); its IoU must equal the plain numpy
+   IoU bit for bit on HOST_PAIRS^2 random pairs, and its assignments must
+   reach scipy's total cost on HOST_LSAP random problems (half with tied
+   integer costs) and equal scipy's assignment on every problem with
+   continuous costs; the host ByteTrack replays phase 8's own tracker
+   inputs through the runtime and through the plain route (numpy IoU,
+   scipy), in turns, with its ms per frame; (b) a process group of one
+   over NCCL and a 1x1 mesh: MESH_STEPS steps of the shipped YOLOv8x at
+   640, batch 16, bf16 (square scenes) through `shard_train_step` against
+   `Trainer` on the same batches with cuDNN's deterministic algorithms,
+   losses and parameters bit-equal (else within MESH_LOSS_RTOL and
+   MESH_PARAM_TOL), both then timed in turns with cuDNN's defaults;
+   `detect_dp` of phase 4's detector on 8 1080p frames bit-equal to
+   `detect_batch`, with exactly one kernel launch, and the kernel's kept
+   set at site `detect_dp` equal to the plain one; (c) with two cards or
+   more, dp 2 over NCCL (`chip_smoke.py --mesh-rank`, one process per
+   card) against (b)'s single-device steps and detections, else it prints
+   that one card is visible; its numbers as one JSON line;
+16. the kernel table as one JSON line (every site timed in this run under
    `sites`), then the result line.
 
 Any failure raises and exits non-zero. Without CUDA, or without the
@@ -195,6 +215,7 @@ hockey_tpu_torch package beside it, it exits non-zero and prints no result.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -211,10 +232,18 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
+from hockey_tpu_torch.core.mesh import (  # noqa: E402
+    free_port,
+    init_from_env,
+    launch,
+    make_mesh,
+    shard_batch,
+)
 from hockey_tpu_torch.core.session import load_run_state, save_run_state  # noqa: E402
 from hockey_tpu_torch.homography.ransac import dlt_homography, project  # noqa: E402
 from hockey_tpu_torch.homography.calibrator import CalibratorState  # noqa: E402
@@ -272,6 +301,11 @@ from hockey_tpu_torch.ops.nms_kernel import (  # noqa: E402
     suppress_reference,
 )
 from hockey_tpu_torch.ops import assignment  # noqa: E402
+from hockey_tpu_torch.parallel.sharding import (  # noqa: E402
+    detect_dp,
+    gather_params,
+    shard_train_step,
+)
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
 from hockey_tpu_torch.rinkmap.dimensions import (  # noqa: E402
     NHL,
@@ -284,6 +318,7 @@ from hockey_tpu_torch.teams.facade import TeamClassifier  # noqa: E402
 from hockey_tpu_torch.teams.hybrid import HybridTeamClassifier  # noqa: E402
 from hockey_tpu_torch.teams.embed_train import EmbedTrainer  # noqa: E402
 from hockey_tpu_torch.teams.robust import RobustTeamClassifier  # noqa: E402
+from hockey_tpu_torch.tracking import bytetrack, native  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
@@ -394,6 +429,20 @@ JAX_SYNTHETIC_F32 = {"mAP50": 0.0, "mAP50_95": 0.0}
 CARD_LOSS_RTOL, CARD_GRAD_TOL, CARD_UPDATE_TOL = 1e-4, 1e-2, 5e-2
 EMBED_STEPS, EMBED_ACC_RISE = 80, 0.05
 DIGIT_STEPS, DIGIT_LOSS_FRAC = 150, 0.85
+# phase 15. (a): random box pairs and assignment problems of the host
+# runtime's checks, and the replays of phase 8's tracker inputs per route.
+# (b): steps of each trainer at full width and the learning rate; the
+# 1x1 mesh's step against `Trainer`'s is checked bit for bit with cuDNN's
+# deterministic algorithms, else within MESH_LOSS_RTOL relative on each
+# loss and MESH_PARAM_TOL of each leaf's scale (at least 1) on the
+# parameters. (c), with two cards: dp 2 against (b)'s single-device steps,
+# in bf16 with each rank's convolutions at half the batch: each loss within
+# MULTI_LOSS_RTOL relative, the parameters within MULTI_PARAM_TOL, the
+# detections matched at IoU 0.8 at least MULTI_MATCH both ways
+HOST_PAIRS, HOST_LSAP, HOST_REPLAYS = 100, 1000, 5
+MESH_STEPS, MESH_LR = 3, 0.001
+MESH_LOSS_RTOL, MESH_PARAM_TOL = 1e-3, 1e-4
+MULTI_LOSS_RTOL, MULTI_PARAM_TOL, MULTI_MATCH = 2e-2, 1e-3, 0.95
 
 
 def phase(name: str) -> None:
@@ -1202,7 +1251,7 @@ def fresh_homography(frame, kpts):
 
 def rink_phase(config, max_err):
     """Phase 8; returns (kernel launches over classify_frames and the rink
-    detector's call, max_err, the rink line's numbers)."""
+    detector's call, max_err, each frame's host ByteTrack inputs)."""
     frames = rink_scene(seed=0, n=BATCH * N_BATCHES)
     h_true = np.linalg.inv(rink_homography())  # image -> rink
     t = time.perf_counter()
@@ -1229,6 +1278,14 @@ def rink_phase(config, max_err):
         return out
 
     dual.detect_batch = recording
+    track_inputs = []  # each frame's (boxes, scores, classes) for phase 15
+    update = vp.tracker.update
+
+    def recording_update(*args):
+        track_inputs.append(tuple(np.array(a, copy=True) for a in args))
+        return update(*args)
+
+    vp.tracker.update = recording_update
     vp.timers.reset()
     suppress.launches = 0
     results, hs, marks = [], [], []
@@ -1241,6 +1298,7 @@ def rink_phase(config, max_err):
             marks.append(time.perf_counter())
     launches_d = suppress.launches
     dual.detect_batch = detect_batch
+    vp.tracker.update = update
     fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     n = len(results)
@@ -1425,7 +1483,7 @@ def rink_phase(config, max_err):
         "kernel_at_rink_detector_site": sites["rink_detector"],
     }
     print(json.dumps({"rink": rink}), flush=True)
-    return launches_d + launches_r, max_err
+    return launches_d + launches_r, max_err, track_inputs
 
 
 def kernel_on_batch(label, core, model, x, max_err, site=None):
@@ -2506,6 +2564,289 @@ def slice10_phase(config, vp, frames, max_err):
     return out["kernel_launches"], max_err
 
 
+# --------------------------------------------------------------------------
+# phase 15: the host runtime, and multi-device training and detection
+
+@contextlib.contextmanager
+def plain_route():
+    """The host ByteTrack's plain route (numpy IoU, scipy's solver) for
+    the duration of a `with`."""
+    iou, lsa = bytetrack._iou_matrix, native.linear_sum_assignment
+    bytetrack._iou_matrix = native._iou_numpy
+    native.linear_sum_assignment = native.linear_sum_assignment_reference
+    try:
+        yield
+    finally:
+        bytetrack._iou_matrix, native.linear_sum_assignment = iou, lsa
+
+
+def replay_tracker(config, inputs):
+    """(ms per frame, each frame's outputs) of a fresh host ByteTrack over
+    `inputs`, by the host clock."""
+    tr = ByteTrack.from_config(config)
+    t = time.perf_counter()
+    out = [tr.update(*x) for x in inputs]
+    return 1e3 * (time.perf_counter() - t) / len(inputs), out
+
+
+def host_runtime(config, inputs):
+    """(a): the host runtime built cold, held against its plain versions,
+    and the host ByteTrack's ms per frame through either route."""
+    build_dir = native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as d:
+        native.BUILD_DIR = d
+        try:
+            t = time.perf_counter()
+            ctypes.CDLL(native.build_library())
+            build_s = time.perf_counter() - t
+        finally:
+            native.BUILD_DIR = build_dir
+    rng = np.random.default_rng(15)
+
+    def boxes(n):  # positive areas: the two IoUs' rules for a degenerate pair differ
+        xy = rng.uniform(0, 1800, (n, 2))
+        return np.concatenate([xy, xy + rng.uniform(4, 200, (n, 2))], 1).astype(np.float32)
+
+    a, b = boxes(HOST_PAIRS), boxes(HOST_PAIRS)
+    iou_equal = np.array_equal(native.iou_matrix(a, b), native._iou_numpy(a, b))
+    cost_equal = assign_equal = ties_other = 0
+    for i in range(HOST_LSAP):
+        r, c = rng.integers(1, 31, 2)
+        tied = i % 2 == 0  # integer costs: optima tie; continuous: one optimum
+        cost = rng.integers(0, 4, (r, c)).astype(np.float64) if tied else rng.random((r, c))
+        rows, cols = native.linear_sum_assignment(cost)
+        pr, pc = native.linear_sum_assignment_reference(cost)
+        # the same pairs (for r > c the runtime lists them by column)
+        same = sorted(zip(rows.tolist(), cols.tolist())) == sorted(
+            zip(pr.tolist(), pc.tolist()))
+        cost_equal += bool(np.isclose(cost[rows, cols].sum(), cost[pr, pc].sum(),
+                                      rtol=1e-12, atol=0))
+        if tied:
+            ties_other += not same
+        else:
+            assign_equal += same
+    native_ms, plain_ms, outs = [], [], {}
+    for route in ("plain", "native", "native", "plain"):
+        with plain_route() if route == "plain" else contextlib.nullcontext():
+            for _ in range(HOST_REPLAYS):
+                ms, outs[route] = replay_tracker(config, inputs)
+                (plain_ms if route == "plain" else native_ms).append(ms)
+    ids_equal = all(np.array_equal(x[3], y[3]) and np.array_equal(x[0], y[0])
+                    for x, y in zip(outs["native"], outs["plain"]))
+    out = {"build_s": round(build_s, 3), "iou_pairs": HOST_PAIRS ** 2,
+           "iou_bit_equal_to_numpy": iou_equal,
+           "lsap_problems": HOST_LSAP, "total_cost_equal_to_scipy": cost_equal,
+           "unique_optimum_assignments_equal": assign_equal,
+           "tied_problems_with_another_optimum": ties_other,
+           "frames": len(inputs),
+           "bytetrack_ms_per_frame_native": [round(x, 4) for x in native_ms],
+           "bytetrack_ms_per_frame_plain": [round(x, 4) for x in plain_ms],
+           "native_ids_equal_plain_on_phase8": ids_equal}
+    print(f"(a) host runtime: g++ build {build_s:.2f} s; IoU on {HOST_PAIRS ** 2} "
+          f"pairs bit-equal to numpy: {iou_equal}; total cost equal to scipy's "
+          f"on {cost_equal} of {HOST_LSAP} problems, the assignment equal on "
+          f"{assign_equal} of {HOST_LSAP // 2} with one optimum ({ties_other} "
+          f"tied ones solved to another optimum); host ByteTrack over phase 8's "
+          f"{len(inputs)} frames, ms per frame native {out['bytetrack_ms_per_frame_native']} "
+          f"plain {out['bytetrack_ms_per_frame_plain']}; ids equal {ids_equal}",
+          flush=True)
+    if not iou_equal or cost_equal != HOST_LSAP or assign_equal != HOST_LSAP // 2:
+        raise AssertionError(f"(a): the host runtime disagrees with its plain versions {out}")
+    if not inputs or not all(len(o[3]) == len(set(o[3].tolist())) for o in outs["native"]):
+        raise AssertionError("(a): no tracker inputs, or duplicate ids")
+    return out
+
+
+def mesh_batches(n_steps, device):
+    """`n_steps` batches of 16 square scenes at 640 on `device`."""
+    frames, boxes = square_players(seed=31, n=16 * n_steps)
+    return [batch_of(frames[16 * i:16 * (i + 1)], boxes[16 * i:16 * (i + 1)], device)
+            for i in range(n_steps)]
+
+
+def mesh_train_config():
+    return TrainConfig(imgsz=640, learning_rate=MESH_LR, warmup_steps=1,
+                       total_steps=10, compute_dtype="bfloat16")
+
+
+def mesh_model(device):
+    name = "hockey-player-detection"
+    model = build_model(MODEL_ZOO[name], load_params(shipped_weights_path(name)))
+    return model.to(device, memory_format=torch.channels_last)
+
+
+def timed_steps(trainer, batches):
+    """(each step's metrics as floats, each step's ms by the host clock
+    around a synchronised step)."""
+    out, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = {k: float(v) for k, v in trainer.step(b).items()}
+        ms.append(1e3 * (time.perf_counter() - t))
+        out.append(m)
+    return out, ms
+
+
+def flat(tree):
+    """A parameter tree's leaves by their '/'-joined paths."""
+    return {"/".join(k): v for k, v in flatten_tree(tree).items()}
+
+
+def tree_diff(fa, fb):
+    """Largest difference of two `flat` parameter trees, each leaf relative
+    to its largest magnitude (at least 1)."""
+    if fa.keys() != fb.keys():
+        raise AssertionError("parameter trees differ in their leaves")
+    return max(float(np.abs(fa[k] - fb[k]).max()) / max(float(np.abs(fb[k]).max()), 1.0)
+               for k in fb)
+
+
+def mesh_steps(mesh, batches):
+    """(b): `MESH_STEPS` steps of `Trainer` and of `shard_train_step` over
+    the 1x1 mesh from the shipped YOLOv8x, deterministic cuDNN, then the
+    two timed in turns with cuDNN's defaults."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        single = Trainer(MODEL_ZOO["hockey-player-detection"], mesh_train_config(),
+                         mesh_model("cuda"))
+        want, _ = timed_steps(single, batches)
+        sharded = shard_train_step(mesh, MODEL_ZOO["hockey-player-detection"],
+                                   mesh_train_config(), mesh_model("cuda"))
+        got, _ = timed_steps(sharded, batches)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    keys = ("loss", "box_loss", "cls_loss", "dfl_loss", "grad_norm")
+    loss_rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                   for g, w in zip(got, want) for k in keys)
+    want_tree = params_to_jax(single.model)
+    param_diff = tree_diff(flat(gather_params(sharded)), flat(want_tree))
+    bit_equal = got == want and param_diff == 0.0
+    ms = {"single": [], "mesh_1x1": []}
+    for tag in ("single", "mesh_1x1", "mesh_1x1", "single"):
+        _, t = timed_steps(single if tag == "single" else sharded, batches[:2])
+        ms[tag] += t
+    out = {"model": "YOLOv8x (hockey-player-detection), 640, batch 16, bf16",
+           "steps": len(batches), "losses": [round(m["loss"], 5) for m in got],
+           "num_fg": [m["num_fg"] for m in got], "bit_equal": bit_equal,
+           "loss_max_rel_diff": loss_rel, "param_max_diff": param_diff,
+           "step_ms_single": [round(x, 3) for x in ms["single"]],
+           "step_ms_mesh_1x1": [round(x, 3) for x in ms["mesh_1x1"]]}
+    print(f"(b) 1x1 mesh step against Trainer: {out}", flush=True)
+    check_history("(b) mesh", got, keys)
+    if not bit_equal and (loss_rel > MESH_LOSS_RTOL or param_diff > MESH_PARAM_TOL):
+        raise AssertionError(f"(b): the 1x1 mesh step differs from Trainer's {out}")
+    return out, want, want_tree
+
+
+def multi_card(batches, want, want_tree, frames8, dets8, dp=2, fsdp=1):
+    """(c): a dp x fsdp mesh over NCCL, one process per card, held against
+    (b)'s single-device steps and phase 4's detections."""
+    with tempfile.TemporaryDirectory() as d:
+        inp, res = os.path.join(d, "in.npz"), os.path.join(d, "out.npz")
+        np.savez(inp, frames=frames8, device="cuda", fsdp=fsdp,
+                 **{f"{i}/{k}": v.cpu().numpy() for i, b in enumerate(batches)
+                    for k, v in b.items()})
+        t = time.perf_counter()
+        rc = launch([os.path.abspath(__file__), "--mesh-rank", inp, res], dp * fsdp,
+                    "cuda", timeout=900)
+        if rc != 0:
+            raise AssertionError(f"(c): a rank failed ({rc})")
+        with np.load(res, allow_pickle=False) as f:
+            got = dict(f)
+        secs = time.perf_counter() - t
+    keys = ("loss", "box_loss", "cls_loss", "dfl_loss")
+    loss_rel = max(abs(got[f"step{i}/{k}"] - w[k]) / max(abs(w[k]), 1e-12)
+                   for i, w in enumerate(want) for k in keys)
+    param_diff = tree_diff({k[7:]: v for k, v in got.items() if k.startswith("params/")},
+                           flat(want_tree))
+    det2 = [HostDetections(got["det/boxes"][i][got["det/valid"][i]],
+                           got["det/scores"][i][got["det/valid"][i]],
+                           got["det/classes"][i][got["det/valid"][i]])
+            for i in range(len(frames8))]
+    match = min(min(match_fraction(a, b), match_fraction(b, a))
+                for a, b in zip(det2, dets8))
+    out = {"dp": dp, "fsdp": fsdp, "seconds": round(secs, 1),
+           "loss_max_rel_diff": loss_rel,
+           "param_max_diff": param_diff, "detect_dp_min_match": match,
+           "step_ms": [round(float(x), 3) for x in got["step_ms"]]}
+    print(f"(c) dp {dp} x fsdp {fsdp} over NCCL on {dp * fsdp} cards against "
+          f"(b): {out}", flush=True)
+    if loss_rel > MULTI_LOSS_RTOL or param_diff > MULTI_PARAM_TOL or match < MULTI_MATCH:
+        raise AssertionError(f"(c): the mesh differs from one card {out}")
+    return out
+
+
+def mesh_rank(inp: str, res: str) -> int:
+    """One rank of (c), started by `launch` with `--mesh-rank IN OUT`:
+    (b)'s steps on this rank's rows over the mesh of IN's fsdp, then
+    `detect_dp` of the shipped detector on IN's frames; rank 0 writes
+    OUT."""
+    with np.load(inp, allow_pickle=False) as f:
+        data = dict(f)
+    device = init_from_env(str(data["device"]))
+    mesh = make_mesh(dist.get_world_size(), fsdp=int(data["fsdp"]), device=device)
+    batches = [{k: torch.from_numpy(data[f"{i}/{k}"]) for k in
+                ("images", "boxes", "classes", "mask")} for i in range(MESH_STEPS)]
+    trainer = shard_train_step(mesh, MODEL_ZOO["hockey-player-detection"],
+                               mesh_train_config(), mesh_model(device))
+    out, ms = timed_steps(trainer, [shard_batch(mesh, b) for b in batches])
+    res_d = {f"step{i}/{k}": np.float64(v) for i, m in enumerate(out) for k, v in m.items()}
+    res_d["step_ms"] = np.asarray(ms)
+    res_d.update({"params/" + k: v for k, v in flat(gather_params(trainer)).items()})
+    det = Detector(Config().player_model_name, Config(), frame_hw=FRAME_HW,
+                   device=device, dtype=torch.bfloat16)
+    got = detect_dp(det.detect_batch, mesh)(data["frames"])
+    res_d.update({f"det/{f}": getattr(got, f).cpu().numpy() for f in got._fields})
+    if mesh.rank == 0:
+        np.savez(res, **res_d)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(config, det, frames, max_err):
+    """Phase 15 (b) and (c); returns (kernel launches of detect_dp,
+    max_err, the phase's numbers)."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device=torch.device("cuda", torch.cuda.current_device()))
+        probe = torch.ones(1, device="cuda")
+        dist.all_reduce(probe)  # the NCCL communicator works
+        batches = mesh_batches(MESH_STEPS, "cuda")
+        train, want, want_tree = mesh_steps(mesh, batches)
+        frames8 = frames[:BATCH]
+        suppress.launches = 0
+        got = detect_dp(det.detect_batch, mesh)(frames8)
+        launches = suppress.launches
+        ref = det.detect_batch(frames8)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(got, f), getattr(ref, f)) for f in ref._fields)
+        print(f"(b) detect_dp over the 1x1 mesh, YOLOv8x 736x1280 bf16 batch "
+              f"{BATCH}: bit-equal to detect_batch {same}; nms_suppress "
+              f"launches {launches}; detections {got.valid.sum(1).tolist()}",
+              flush=True)
+        if not same or launches != 1:
+            raise AssertionError(f"(b) detect_dp: equal {same}, {launches} launches")
+        max_err = kernel_on_batch("detect_dp", det.core, det.model, frames8,
+                                  max_err, site="detect_dp")
+    finally:
+        dist.destroy_process_group()
+    out = {"train_1x1": train, "detect_dp_bit_equal": same,
+           "detect_dp_launches": launches}
+    if torch.cuda.device_count() >= 2:
+        dets8 = [HostDetections.from_padded(ref, i) for i in range(BATCH)]
+        torch.cuda.empty_cache()  # rank 0 shares this process's card
+        out["multi_card"] = multi_card(batches, want, want_tree, frames8, dets8)
+    else:
+        print(f"multi-card: {torch.cuda.device_count()} card visible, not run",
+              flush=True)
+        out["multi_card"] = "not run: 1 card visible"
+    return launches, max_err, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2766,7 +3107,7 @@ def main() -> int:
 
     phase("8 rink + 2D map: the dual step (YOLOv8x 736x1280 + YOLOv8s-pose "
           "512), host ByteTrack and calibrator, VideoProcessor.classify_frames")
-    launches_r, max_err = rink_phase(config, max_err)
+    launches_r, max_err, track_inputs = rink_phase(config, max_err)
 
     phase("9 team cascade: robust, then hybrid (MobileNetV3 f32 on the card), "
           "headless, fit_teams and classify_frames on phase 6's scene")
@@ -2796,7 +3137,20 @@ def main() -> int:
           "embedder's step; (e) the digit net's step")
     launches_14, max_err = slice10_phase(config, vp, frames, max_err)
 
-    phase("15 results")
+    phase("15 the host runtime and multi-device training and detection: (a) "
+          "hockey_host.cpp (g++) against its plain versions, host ByteTrack on "
+          "phase 8's detections; (b) a 1x1 mesh over NCCL: shard_train_step "
+          "(YOLOv8x 640 b16 bf16) against Trainer, detect_dp against "
+          "detect_batch; (c) dp 2 on two cards")
+    t = time.perf_counter()
+    host = host_runtime(config, track_inputs)
+    launches_15, max_err, mesh_out = mesh_phase(config, det, frames, max_err)
+    print(json.dumps({"slice11": {"host_runtime": host, **mesh_out,
+                                  "kernel_at_sites": {"detect_dp": SITES["detect_dp"]},
+                                  "seconds": round(time.perf_counter() - t, 1)}}),
+          flush=True)
+
+    phase("16 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
@@ -2805,7 +3159,7 @@ def main() -> int:
         "replaces": "hockey_tpu/ops/pallas/nms_kernel.py:24",
         "launches": (launches + launches_t + launches_c + launches_p + launches_r
                      + launches_k + launches_m + launches_s + launches_v
-                     + launches_tr + launches_14),
+                     + launches_tr + launches_14 + launches_15),
         "max_abs_err": max_err,
         **main,
         "library_ms": None,
@@ -2818,4 +3172,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -11,10 +11,11 @@ A module is built in the inference form, every tensor a buffer, as the
 serving paths load and fold it. `trainable` turns it into the training
 form in place: `w`, `b`, `bn.scale` and `bn.bias` become parameters, the
 BN running `mean` and `var` stay buffers. A forward given a `stats` list
-is a training forward: each BN normalises by its batch statistics and
-appends `(path, mean, var)` to the list, `path` being the JAX package's
-name of the conv (`backbone/c2f1/m0/cv1`, `StatsCollector`), and the
-train step applies the running-stat update (train/trainer.py). Without
+is a training forward: each BN normalises by its batch statistics
+(`batch_var_mean`) and appends `(path, mean, var)` to the list, `path`
+being the JAX package's name of the conv (`backbone/c2f1/m0/cv1`,
+`StatsCollector`), and the train step applies the running-stat update
+(train/trainer.py). Without
 it, BN uses the running statistics. `fuse_conv_bn` folds either form
 into an inference conv.
 """
@@ -52,6 +53,16 @@ class BatchNorm(nn.Module):
         return scale, self.bias - self.mean * scale
 
 
+def batch_var_mean(y: torch.Tensor, stats: list):
+    """(biased variance, mean) per channel of an NCHW batch: this batch's,
+    or the global batch's where `stats` has a `var_mean` (a dp-sharded
+    batch, parallel/sharding.py `SyncStats`)."""
+    sync = getattr(stats, "var_mean", None)
+    if sync is not None:
+        return sync(y)
+    return torch.var_mean(y, dim=(0, 2, 3), unbiased=False)
+
+
 class Conv(nn.Module):
     """Conv -> BN -> SiLU with symmetric k//2 padding
     (hockey_tpu layers.py:94-139 `_conv2d` + `conv_apply`). The kernel and
@@ -75,8 +86,7 @@ class Conv(nn.Module):
             if stats is None:
                 scale, bias = self.bn.folded()
             else:  # batch statistics, biased variance, in f32
-                var, mean = torch.var_mean(y.float(), dim=(0, 2, 3),
-                                           unbiased=False)
+                var, mean = batch_var_mean(y.float(), stats)
                 stats.append((self.path, mean.detach(), var.detach()))
                 scale = self.bn.scale * torch.rsqrt(var + BN_EPS)
                 bias = self.bn.bias - mean * scale

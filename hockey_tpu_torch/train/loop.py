@@ -27,7 +27,16 @@ augmented there (train/device_aug.py); otherwise `batch_iterator`
 augments on the host. Checkpoints are the JAX package's msgpack trees
 (models/checkpoint.py `save_params`).
 
-`--dp`/`--fsdp` above 1 raise: multi-device sharding is not ported.
+Multi-device training follows the JAX CLI's rule: `dp = --dp or
+devices // --fsdp`, shrunk to a divisor of `--batch`, and a (dp, fsdp)
+mesh (core/mesh.py, parallel/sharding.py) when dp * fsdp > 1 on more than
+one device. The devices are the visible cards on CUDA, the processes
+under torchrun, and on the CPU the explicit `--dp` x `--fsdp` (gloo; 1
+without either flag). Without a launcher, the CLI starts one process per
+mesh device itself, each running this module. Under a mesh, as in the
+JAX CLI, `--ema`, precise-BN and `--device-data` are off; every rank
+draws the host iterator's global batch and trains on its dp rows; rank 0
+prints, validates and writes the checkpoints.
 
 The collapse detector stays a tripwire: with gradients leaking through
 the assignment the model learns to predict nothing (TAL's degenerate
@@ -66,9 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-every", type=int, default=500)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel ways (multi-device: not ported; 0 or 1)")
+                   help="data-parallel ways (0: devices // fsdp)")
     p.add_argument("--fsdp", type=int, default=1,
-                   help="parameter-sharded ways (not ported; 1)")
+                   help="parameter-sharded ways")
     p.add_argument("--mosaic", type=float, default=0.0,
                    help="mosaic probability (ultralytics recipe: 1.0)")
     p.add_argument("--mixup", type=float, default=0.0,
@@ -110,14 +119,39 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a flag whose code the port does not have, or for flags
-    that contradict each other."""
-    if args.dp > 1 or args.fsdp > 1:
-        raise NotImplementedError(
-            "--dp/--fsdp above 1 need multi-device sharding (hockey_tpu/core/"
-            "mesh.py, hockey_tpu/parallel/sharding.py), which is not ported")
+    """Raise for flags that contradict each other."""
     if args.images and args.pool_file:
         raise ValueError("give one of --images or --pool-file, not both")
+    if args.fsdp < 1 or args.dp < 0:
+        raise ValueError(f"--dp {args.dp} --fsdp {args.fsdp}: need dp >= 0, "
+                         "fsdp >= 1")
+
+
+def mesh_plan(args, device_type: str):
+    """(devices, dp, whether to train on a mesh), by the JAX CLI's rule
+    (hockey_tpu/train/loop.py:169-174): the devices are the processes under
+    a launcher, else the visible cards on CUDA, else --dp x --fsdp."""
+    import os
+
+    import torch
+
+    from ..core.mesh import launched
+
+    if launched():
+        n_dev = int(os.environ["WORLD_SIZE"])
+    elif device_type == "cuda":
+        n_dev = torch.cuda.device_count()
+    else:
+        n_dev = max(args.dp, 1) * args.fsdp
+    dp = args.dp or (n_dev // args.fsdp)
+    # dp must divide the batch; shrink to the largest divisor that fits
+    while dp > 1 and args.batch % dp != 0:
+        dp -= 1
+    use_mesh = dp * args.fsdp > 1 and n_dev > 1
+    if use_mesh and dp * args.fsdp > n_dev:
+        raise ValueError(f"a {dp}x{args.fsdp} mesh needs {dp * args.fsdp} "
+                         f"devices, {n_dev} visible")
+    return n_dev, dp, use_mesh
 
 
 def scene_cache_path(imgsz: int, pool: int, seed: int, pucks: bool,
@@ -135,22 +169,22 @@ def scene_cache_path(imgsz: int, pool: int, seed: int, pucks: bool,
         f"{seed}_{int(pucks)}{'_dr' if domain_rand else ''}.npz"))
 
 
-def open_datasets(args, cfg):
+def open_datasets(args, cfg, log=print):
     """(training dataset, held-out dataset or None), chosen in the JAX
-    CLI's order (hockey_tpu/train/loop.py:108-163)."""
+    CLI's order (hockey_tpu/train/loop.py:108-163); `log` prints."""
     from .data import (PoolDataset, SyntheticHockeyDataset,
                        SyntheticRinkDataset, YoloDataset)
 
     val_dataset = None
     if args.images:
         dataset = YoloDataset(args.images, imgsz=args.imgsz)
-        print(f"dataset: {len(dataset)} images from {args.images}")
+        log(f"dataset: {len(dataset)} images from {args.images}")
     elif args.pool_file:
         dataset = PoolDataset(args.pool_file)
         if dataset.imgsz != args.imgsz:
             raise ValueError(f"{args.pool_file} holds {dataset.imgsz}-px "
                              f"images, --imgsz is {args.imgsz}")
-        print(f"dataset: pool of {len(dataset)} images from {args.pool_file}")
+        log(f"dataset: pool of {len(dataset)} images from {args.pool_file}")
     elif cfg.num_keypoints:
         dataset = SyntheticRinkDataset(imgsz=args.imgsz, seed=args.seed,
                                        rich=args.domain_rand)
@@ -158,8 +192,8 @@ def open_datasets(args, cfg):
             # held-out seeds; rich as in training
             val_dataset = SyntheticRinkDataset(
                 imgsz=args.imgsz, seed=args.seed + 7777, rich=args.domain_rand)
-        print("dataset: synthetic rink views (pose model, no --images, "
-              f"rich={args.domain_rand})")
+        log("dataset: synthetic rink views (pose model, no --images, "
+            f"rich={args.domain_rand})")
     elif args.dataset in ("hard", "hard-puck") or (
             args.dataset == "auto" and args.val_every):
         from .scenes import HardSyntheticHockeyDataset
@@ -172,23 +206,23 @@ def open_datasets(args, cfg):
         val_dataset = HardSyntheticHockeyDataset(
             imgsz=args.imgsz, seed=args.seed + 7777,
             pool_size=args.val_size, pucks=pucks)
-        print(f"dataset: hard synthetic scenes (pool {args.pool}, "
-              f"pucks={pucks}, domain_rand={args.domain_rand}); "
-              "pre-rendering...")
+        log(f"dataset: hard synthetic scenes (pool {args.pool}, "
+            f"pucks={pucks}, domain_rand={args.domain_rand}); "
+            "pre-rendering...")
         t = time.time()
         cache = scene_cache_path(args.imgsz, args.pool, args.seed, pucks,
                                  args.domain_rand)
         if dataset.load_cache(cache):
-            print(f"loaded scene pool from {cache}")
+            log(f"loaded scene pool from {cache}")
         else:
             dataset.pregenerate()
             dataset.save_cache(cache)
         val_dataset.pregenerate()
-        print(f"pre-rendered {args.pool}+{args.val_size} scenes "
-              f"in {time.time() - t:.0f}s")
+        log(f"pre-rendered {args.pool}+{args.val_size} scenes "
+            f"in {time.time() - t:.0f}s")
     else:
         dataset = SyntheticHockeyDataset(imgsz=args.imgsz, seed=args.seed)
-        print("dataset: synthetic (no --images given)")
+        log("dataset: synthetic (no --images given)")
     if args.val_pool_file:
         val_dataset = PoolDataset(args.val_pool_file)
     if args.val_every and val_dataset is None:
@@ -213,13 +247,19 @@ class TrainRun:
 
 
 def run(argv: Optional[List[str]] = None) -> TrainRun:
-    """The body of `main`: parse `argv`, train, save; returns the run."""
+    """The body of `main`: parse `argv`, train, save; returns the run.
+    Where the run needs a mesh and no launcher started this process, it
+    starts the mesh's processes and returns their return code alone."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     check_ported(args)
 
     import torch
 
     from ..core.device import resolve_device
+    from ..core.mesh import init_from_env, launch, launched, make_mesh
     from ..models.checkpoint import load_params, save_params
     from ..models.yolov8 import (MODEL_ZOO, YoloConfig, build_model, init_params,
                                  params_to_jax)
@@ -227,6 +267,27 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
     from .trainer import TrainConfig, Trainer, batch_to, make_bn_stats_fn, precise_bn
 
     device = resolve_device(args.device)
+    n_dev, dp, use_mesh = mesh_plan(args, device.type)
+    if use_mesh and not launched():
+        print(f"mesh: dp {dp} x fsdp {args.fsdp} of {n_dev} devices; starting "
+              f"{dp * args.fsdp} processes on {device.type}", flush=True)
+        rc = launch(["-m", "hockey_tpu_torch.train.loop", *argv],
+                    dp * args.fsdp, device.type)
+        return TrainRun(rc, [], [], None, None, -1.0)
+    mesh = None
+    if use_mesh:
+        import torch.distributed as dist
+
+        device = init_from_env(device.type)
+        mesh = make_mesh(dp * args.fsdp, dp=dp, fsdp=args.fsdp, device=device)
+    lead = mesh is None or mesh.rank == 0
+
+    def say(*a, **k):  # rank 0 prints
+        if lead:
+            print(*a, **k)
+
+    if mesh is not None:
+        say(f"mesh: {mesh.shape}")
     cfg = MODEL_ZOO[args.model]
     if args.variant:
         cfg = YoloConfig(args.variant, cfg.num_classes, cfg.num_keypoints)
@@ -235,19 +296,31 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
                      compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     if args.init:
         tree = load_params(args.init)
-        print(f"initialized from {args.init}")
+        say(f"initialized from {args.init}")
     else:
         tree = init_params(cfg, seed=args.seed, box_prior=args.box_prior)
     model = build_model(cfg, tree).to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
-    dataset, val_dataset = open_datasets(args, cfg)
+    if mesh is not None and not lead:
+        dist.barrier()  # rank 0 renders (and caches) the pools first
+    dataset, val_dataset = open_datasets(args, cfg, log=say)
+    if mesh is not None and lead:
+        dist.barrier()
 
-    trainer = Trainer(cfg, tc, model, ema_decay=args.ema)
+    if mesh is not None:
+        from ..core.mesh import shard_batch
+        from ..parallel.sharding import shard_train_step
+
+        if args.ema:
+            say("note: --ema is single-device only; disabled under a mesh")
+        trainer = shard_train_step(mesh, cfg, tc, model)
+    else:
+        trainer = Trainer(cfg, tc, model, ema_decay=args.ema)
 
     evaluator = None
-    if args.val_every:
+    if args.val_every and lead:
         if cfg.num_keypoints:
             from .eval import InTrainingPoseEvaluator
 
@@ -260,9 +333,9 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
     val_log = []
 
     # precise-BN: recalibrate running stats on clean train-distribution
-    # images before any eval/save
+    # images before any eval/save (single-device only, as in the JAX CLI)
     recal = None
-    if args.precise_bn:
+    if args.precise_bn and mesh is None:
         stats_fn = make_bn_stats_fn(tc.compute_dtype)
         rb = min(8, args.batch)
 
@@ -302,10 +375,10 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
                   f"mAP50-95 {m['mAP50_95']:.4f} {per_cls}{tag}", flush=True)
 
     def log(i, m, t0):
-        print(f"step {i:6d} loss {m['loss']:8.4f} box {m['box_loss']:.4f} "
-              f"cls {m['cls_loss']:.4f} dfl {m['dfl_loss']:.4f} "
-              f"fg {m['num_fg']:.0f} gn {m['grad_norm']:.1f} "
-              f"({(time.time() - t0) / max(i, 1):.2f}s/step)", flush=True)
+        say(f"step {i:6d} loss {m['loss']:8.4f} box {m['box_loss']:.4f} "
+            f"cls {m['cls_loss']:.4f} dfl {m['dfl_loss']:.4f} "
+            f"fg {m['num_fg']:.0f} gn {m['grad_norm']:.1f} "
+            f"({(time.time() - t0) / max(i, 1):.2f}s/step)", flush=True)
 
     def collapsing(i, m):
         # TAL degenerate-minimum detector: box_loss ~ 0 with fg anchors
@@ -314,12 +387,14 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
                 and m["box_loss"] < 0.02 and m["num_fg"] > 0)
 
     def finish(rc):
-        if rc == 0:
+        if rc == 0 and lead:
             if evaluator is not None:
                 run_val(args.steps, ckpt_model())
             save_params(args.out, params_to_jax(prep_ckpt(ckpt_model())))
             print(f"saved {args.out} (best val {best:.4f})" if best >= 0
                   else f"saved {args.out}")
+        if mesh is not None:
+            dist.destroy_process_group()
         return TrainRun(rc, history, val_log, trainer, evaluator, best)
 
     history: List[Dict[str, float]] = []
@@ -335,22 +410,25 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
     def periodic(i):
         if evaluator is not None and i and i % args.val_every == 0:
             run_val(i, ckpt_model())
-        if args.save_every and i and i % args.save_every == 0:
+        if lead and args.save_every and i and i % args.save_every == 0:
             save_params(args.out, params_to_jax(prep_ckpt(ckpt_model())))
 
-    if args.device_data:
+    if args.device_data and mesh is not None:
+        say("note: --device-data is single-device only; the host iterator "
+            "feeds the mesh")
+    if args.device_data and mesh is None:
         # device-resident pipeline: the pool is staged once, augmentation
         # runs on the device, the host sends nothing per step
         from .device_aug import make_device_batch_fn, make_pose_batch_fn, stage_pool
 
         # an unbounded dataset (the synthetic ones): its first --pool items
         n_pool = args.pool if len(dataset) >= 1 << 30 else len(dataset)
-        print(f"staging the pool ({n_pool} scenes) in device memory...")
+        say(f"staging the pool ({n_pool} scenes) in device memory...")
         pool = stage_pool(dataset, range(n_pool), device=device)  # keypoints too
         if cfg.num_keypoints:
             if args.mosaic or args.mixup:
-                print("note: --mosaic/--mixup are unsupported for pose "
-                      "pools; training without them")
+                say("note: --mosaic/--mixup are unsupported for pose "
+                    "pools; training without them")
             batch_fn = make_pose_batch_fn(args.batch)
         else:
             batch_fn = make_device_batch_fn(args.imgsz, args.batch,
@@ -365,13 +443,13 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
             # only a persistent streak means training is hopeless
             bad = bad + 1 if not np.isfinite(m["loss"]) else 0
             if bad >= 25:
-                print("non-finite loss for 25 consecutive steps; aborting")
+                say("non-finite loss for 25 consecutive steps; aborting")
                 return TrainRun(1, history, val_log, trainer, evaluator, best)
             collapsed = collapsed + 1 if collapsing(i, m) else 0
             if collapsed >= 100:
-                print(f"step {i}: TAL collapse detected (box_loss ~ 0 for "
-                      f"100 consecutive steps); stopping early. Restart "
-                      f"from the saved best checkpoint at a lower --lr.")
+                say(f"step {i}: TAL collapse detected (box_loss ~ 0 for "
+                    f"100 consecutive steps); stopping early. Restart "
+                    f"from the saved best checkpoint at a lower --lr.")
                 return TrainRun(3, history, val_log, trainer, evaluator, best)
             if i % args.log_every == 0 or i == args.steps - 1:
                 log(i, m, t0)
@@ -383,7 +461,9 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
                         mosaic_prob=args.mosaic, mixup_prob=args.mixup)
     t = time.perf_counter()
     for i, host_batch in enumerate(it):  # the host's augmentation in 'ms'
-        m = step(batch_to(host_batch, device), t)
+        # under a mesh each rank draws the global batch and takes its rows
+        m = step(batch_to(host_batch, device) if mesh is None
+                 else shard_batch(mesh, host_batch), t)
         t = time.perf_counter()
         if i % args.log_every == 0 or i == args.steps - 1:
             log(i, m, t0)
@@ -391,13 +471,13 @@ def run(argv: Optional[List[str]] = None) -> TrainRun:
             # means training is hopeless
             bad = bad + 1 if not np.isfinite(m["loss"]) else 0
             if bad >= 3:
-                print("non-finite loss persists; aborting")
+                say("non-finite loss persists; aborting")
                 return TrainRun(1, history, val_log, trainer, evaluator, best)
             collapsed = collapsed + 1 if collapsing(i, m) else 0
             if collapsed >= 5:
-                print(f"step {i}: TAL collapse detected (box_loss ~ 0); "
-                      f"stopping early. Restart from the saved best "
-                      f"checkpoint at a lower --lr.")
+                say(f"step {i}: TAL collapse detected (box_loss ~ 0); "
+                    f"stopping early. Restart from the saved best "
+                    f"checkpoint at a lower --lr.")
                 return TrainRun(3, history, val_log, trainer, evaluator, best)
         periodic(i)
     return finish(0)

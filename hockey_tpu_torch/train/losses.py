@@ -8,7 +8,7 @@ of it in f32 whatever the forward's dtype.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -45,11 +45,21 @@ def _anchors(imgsz, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return pts, strides
 
 
+def _batch_total(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def detection_loss(raw: Dict, batch: Dict[str, torch.Tensor], cfg: YoloConfig,
-                   imgsz: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   imgsz: int, global_sum: Callable = _batch_total
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """raw: `forward_raw`'s NHWC head maps. batch: 'boxes' (B, M, 4) xyxy
     px, 'classes' (B, M) int, 'mask' (B, M) bool, and for a pose model
-    'keypoints' (B, M, K, 3). Returns (loss, metrics)."""
+    'keypoints' (B, M, K, 3). Returns (loss, metrics).
+
+    `global_sum(t)` is the global batch's sum of a gradient-free sum `t` over
+    this batch, for the normalisers: this batch's own sum here; over a
+    dp-sharded batch the sum over the dp ranks (parallel/sharding.py), so
+    that each rank's loss and metrics are its share of the global ones."""
     b = raw["box"][0].shape[0]
     reg_max, nc = cfg.reg_max, cfg.num_classes
     box_flat = torch.cat([m.reshape(b, -1, 4 * reg_max) for m in raw["box"]],
@@ -77,7 +87,7 @@ def detection_loss(raw: Dict, batch: Dict[str, torch.Tensor], cfg: YoloConfig,
                               batch["classes"], batch["mask"], num_classes=nc)
     fg = assign.fg_mask                                               # (B, A)
     tgt_scores = assign.target_scores                                 # (B, A, nc)
-    tgt_sum = torch.clamp(torch.sum(tgt_scores), min=1.0)
+    tgt_sum = torch.clamp(global_sum(torch.sum(tgt_scores)), min=1.0)
 
     # cls: BCE over all anchors
     cls_loss = torch.sum(sigmoid_bce(cls_flat, tgt_scores)) / tgt_sum
@@ -101,13 +111,13 @@ def detection_loss(raw: Dict, batch: Dict[str, torch.Tensor], cfg: YoloConfig,
 
     if "kpt" in raw and "keypoints" in batch:
         kpt_loc, kpt_vis = _keypoint_loss(raw, batch, cfg, assign, fg, w,
-                                          pts, strides)
+                                          pts, strides, global_sum)
         total = total + KPT_W * kpt_loc + KOBJ_W * kpt_vis
         metrics.update(loss=total, kpt_loss=kpt_loc, kobj_loss=kpt_vis)
     return total, metrics
 
 
-def _keypoint_loss(raw, batch, cfg, assign, fg, w, pts, strides):
+def _keypoint_loss(raw, batch, cfg, assign, fg, w, pts, strides, global_sum):
     """v8-pose keypoint loss on fg anchors: the OKS-style location term
     1 - exp(-d^2 / (2 * max(area, 1))) over visible keypoints, and BCE on
     each keypoint's visibility logit. batch['keypoints']: (B, M, K, 3)
@@ -134,10 +144,10 @@ def _keypoint_loss(raw, batch, cfg, assign, fg, w, pts, strides):
     vis_mask = (tgt_vis > 0.5).float()
     anchor_w = (w * fg)[..., None]
     loc = torch.sum(oks_term * vis_mask * anchor_w) / torch.clamp(
-        torch.sum(vis_mask * anchor_w), min=1.0)
+        global_sum(torch.sum(vis_mask * anchor_w)), min=1.0)
     vis_bce = sigmoid_bce(vis_logit, vis_mask)
     vis = torch.sum(vis_bce * fg[..., None]) / torch.clamp(
-        torch.sum(fg.float()) * k, min=1.0)
+        global_sum(torch.sum(fg.float())) * k, min=1.0)
     return loc, vis
 
 

@@ -99,39 +99,72 @@ class Trainer:
         self.cfg, self.tc = cfg, tc
         self.model = trainable(model)
         self.dtype = getattr(torch, tc.compute_dtype)
-        named = list(model.named_parameters())
-        self.params = [p for _, p in named]
+        self.named = list(model.named_parameters())
+        self.params = [p for _, p in self.named]
+        masters = self._masters(self.named)
+        self.masters = [m for _, m in masters]
         # weight decay on conv kernels only, never BN parameters or biases
         self.opt = torch.optim.SGD(
-            [{"params": [p for n, p in named if n.split(".")[-1] == "w"],
+            [{"params": [m for n, m in masters if n.split(".")[-1] == "w"],
               "weight_decay": tc.weight_decay},
-             {"params": [p for n, p in named if n.split(".")[-1] != "w"],
+             {"params": [m for n, m in masters if n.split(".")[-1] != "w"],
               "weight_decay": 0.0}],
             lr=0.0, momentum=tc.momentum, nesterov=True, dampening=0.0)
         self.count = 0  # updates applied: the schedule's count
         self.ema = EMA(model, ema_decay) if ema_decay else None
+
+    # the steps of `step` that a sharded trainer (parallel/sharding.py)
+    # replaces; here, one device
+    def _masters(self, named):
+        """(name, tensor the optimizer updates) of each parameter."""
+        return named
+
+    def _stats(self) -> list:
+        """The train forward's BN statistics list."""
+        return []
+
+    def _global_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch's sum of a loss normaliser."""
+        return t
+
+    def _grads(self):
+        """The optimizer's gradients."""
+        return [p.grad for p in self.params]
+
+    def _norm(self, grads) -> torch.Tensor:
+        return global_norm(grads)
+
+    def _decide(self, metrics, gn):
+        """(update?, norm under the clip?, norm, metrics) of the step."""
+        ok, small = torch.stack([
+            torch.isfinite(metrics["loss"]) & torch.isfinite(gn),
+            gn < self.tc.grad_clip]).tolist()
+        return ok, small, gn, metrics
+
+    def _updated(self) -> None:
+        """After the optimizer's update."""
 
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One train step on a batch on the model's device: 'images'
         (B, S, S, 3) f32 in [0, 1], 'boxes', 'classes', 'mask' (and
         'keypoints'). Returns the loss's metrics with 'grad_norm' and
         'skipped' (1.0 when the update was discarded)."""
-        stats = []
+        stats = self._stats()
         with record_function("train_forward"):
             raw = forward_raw(self.model, batch["images"].to(self.dtype), stats)
         with record_function("train_loss"):
-            loss, metrics = detection_loss(raw, batch, self.cfg, self.tc.imgsz)
+            loss, metrics = detection_loss(raw, batch, self.cfg, self.tc.imgsz,
+                                           global_sum=self._global_sum)
         with record_function("train_backward"):
-            self.opt.zero_grad(set_to_none=True)
+            for p in self.params:
+                p.grad = None
             loss.backward()
         with record_function("train_update"):
             for p in self.params:  # a head the loss does not reach: zero grads
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in self.params]
-            gn = global_norm(grads)
-            ok, small = torch.stack([torch.isfinite(loss) & torch.isfinite(gn),
-                                     gn < self.tc.grad_clip]).tolist()
+            grads = self._grads()
+            ok, small, gn, metrics = self._decide(metrics, self._norm(grads))
             if ok:
                 with torch.no_grad():
                     if not small:  # optax: g / norm * clip
@@ -140,6 +173,7 @@ class Trainer:
                 for g in self.opt.param_groups:
                     g["lr"] = learning_rate(self.tc, self.count)
                 self.opt.step()
+                self._updated()
                 update_bn_stats(self.model, stats)
                 self.count += 1
         if self.ema is not None:

@@ -13,7 +13,8 @@ training modules (the assigner, the losses, the train step, the device
 augmentations and the train CLI), the scene generators, the synthetic
 datasets and the last trainers (generators A and B, the weight
 converters, the embedder's and the digit net's training, the AdamW
-chain) and scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
+chain), the host runtime's binding and the mesh and sharding modules, and
+scripts/torch_e2e_puck.py, scripts/torch_e2e_homography.py and
 scripts/torch_robustness.py. Every module of the package loads with them
 blocked, and none imports cv2 at module level."""
 
@@ -76,7 +77,8 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.train.loop", "hockey_tpu_torch.train.trainer",
     "hockey_tpu_torch.train.losses", "hockey_tpu_torch.train.assigner",
     "hockey_tpu_torch.train.val", "hockey_tpu_torch.models.convert",
-    "hockey_tpu_torch.teams.embed_train")
+    "hockey_tpu_torch.teams.embed_train", "hockey_tpu_torch.tracking.native",
+    "hockey_tpu_torch.core.mesh", "hockey_tpu_torch.parallel.sharding")
 
 # the modules of the later slices: each loads alone with the imports blocked
 SLICE_MODULES = (
@@ -95,7 +97,10 @@ SLICE_MODULES = (
     # the scene generators, the synthetic datasets and the last trainers
     "hockey_tpu_torch.train.scenes", "hockey_tpu_torch.train.scenes_b",
     "hockey_tpu_torch.models.convert", "hockey_tpu_torch.teams.embed_train",
-    "hockey_tpu_torch.ocr.digits", "hockey_tpu_torch.train.optim")
+    "hockey_tpu_torch.ocr.digits", "hockey_tpu_torch.train.optim",
+    # the host runtime and multi-device training and detection
+    "hockey_tpu_torch.tracking.native", "hockey_tpu_torch.core.mesh",
+    "hockey_tpu_torch.parallel.sharding")
 
 _IMPORT_SMOKE = f"""
 import chip_smoke

@@ -7,7 +7,8 @@ Tolerances: assignments, track ids, flags, counters and emitted ids equal
 element for element; `mean` and `cov` within rtol 1e-5 and atol 1e-4 (the
 same f32 filter, with the transition and the 4x4 solve evaluated by two
 libraries in other orders); the host trackers' boxes, scores, classes and
-ids equal (the same numpy code, scipy against the reference's solver);
+ids equal (the same numpy code over the same host runtime's solver,
+tests/test_torch_native.py);
 smoothed display boxes within 1e-5 (the same numpy code)."""
 
 import functools

@@ -9,8 +9,9 @@ pools in the `save_cache` format (tests/test_train_cli.py's counterpart):
   the checkpoint;
 - `--device-data` for the detector and the pose model (a rink pool), and
   the pose model on the host path;
-- `--dp`/`--fsdp` above 1 raise, naming the modules, as do contradicting
-  data flags, and the default `--device cuda` raises without CUDA.
+- malformed `--dp`/`--fsdp` values raise, as do contradicting data
+  flags, and the default `--device cuda` raises without CUDA (the mesh
+  runs in tests/test_torch_sharding.py).
 The rendered datasets' choices are in tests/test_torch_synthetic_data.py.
 """
 
@@ -133,8 +134,13 @@ def test_paths_train(pools, tmp_path, model, pool, extra):
 
 
 @pytest.mark.parametrize("argv,error,names", [
-    (["--dp", "2"], NotImplementedError, "sharding.py"),
-    (["--fsdp", "2"], NotImplementedError, "mesh.py"),
+    # the first two ids are those of the cases from before the mesh was
+    # ported, when --dp 2 and --fsdp 2 raised; they now run
+    # (tests/test_torch_sharding.py) and malformed mesh flags raise
+    pytest.param(["--fsdp", "0"], ValueError, "fsdp >= 1",
+                 id="argv0-NotImplementedError-sharding.py"),
+    pytest.param(["--dp", "-1"], ValueError, "dp >= 0",
+                 id="argv1-NotImplementedError-mesh.py"),
     (["--images", "x"], ValueError, "--images or --pool-file"),
     (["--val-every", "5"], ValueError, "--val-pool-file"),
 ])

@@ -19,7 +19,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
 from ..core.device import resolve_device
@@ -33,6 +32,7 @@ from ..teams.base import CROP_H, CROP_W
 from ..teams.features import color_prior_masks, segmentation_features
 from ..tracking.device_tracker import (TrackState, step_kwargs,
                                        tracker_scan)
+from ..utils.profiling import annotate
 from .checkpoint import load_params, shipped_weights_path
 from .layers import fuse_for_inference
 from .yolov8 import (MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes,
@@ -133,7 +133,7 @@ class DetectCore:
     The step is two halves around the suppression kernel:
     `candidates` (letterbox -> forward -> decode -> class max -> top-K and
     suppression matrix) and `finish` (selection and un-mapping of the kept
-    set). Each stage is a `torch.profiler.record_function` range, so a
+    set). Each stage is an `annotate` range (utils/profiling.py), so a
     profiler trace splits the step by stage."""
 
     def __init__(self, cfg: YoloConfig, *, imgsz: int,
@@ -152,20 +152,20 @@ class DetectCore:
 
     def _decode(self, model: YOLOv8, frames: torch.Tensor):
         """(raw head maps, boxes (B, A, 4), max scores (B, A), classes)."""
-        with record_function("letterbox"):
+        with annotate("letterbox"):
             if self.rect:
                 x = letterbox_rect_batch(frames, self.imgsz, 32, self.dtype)
             else:
                 x = letterbox_batch(frames, self.imgsz, self.dtype)
-        with record_function("forward"):
+        with annotate("forward"):
             raw = forward_raw(model, x)
-        with record_function("decode"):
+        with annotate("decode"):
             boxes, scores = decode_boxes(raw, self.cfg, self.in_hw)
             max_scores, classes = torch.max(scores, dim=-1)
         return raw, boxes, max_scores, classes
 
     def _candidates(self, boxes, max_scores, classes) -> Candidates:
-        with record_function("nms_candidates"):
+        with annotate("nms_candidates"):
             return nms_candidates(
                 boxes, max_scores, classes.int(), score_threshold=self.conf,
                 iou_threshold=self.iou, containment_threshold=self.containment,
@@ -175,7 +175,7 @@ class DetectCore:
         return self._candidates(*self._decode(model, frames)[1:])
 
     def finish(self, cand: Candidates, keep: torch.Tensor) -> Detections:
-        with record_function("nms_select_unmap"):
+        with annotate("nms_select_unmap"):
             det = nms_select(cand, keep, score_threshold=self.conf,
                              max_det=self.max_det)
             return det._replace(boxes=_unmap_boxes(
@@ -184,14 +184,14 @@ class DetectCore:
     def __call__(self, model: YOLOv8, frames: torch.Tensor):
         raw, *decoded = self._decode(model, frames)
         c = self._candidates(*decoded)
-        with record_function("nms_suppress"):
+        with annotate("nms_suppress"):
             keep = suppress(c.matrix, c.keep0, c.thr)
         det = self.finish(c, keep)
         if self.with_team_features:
-            with record_function("team_features"):
+            with annotate("team_features"):
                 return det, team_features(frames, det.boxes)
         if self.with_keypoints:
-            with record_function("keypoints"):
+            with annotate("best_keypoints"):
                 geometry = letterbox_geometry(*self.frame_hw, self.imgsz,
                                               self.rect)
                 return det, best_keypoints(
@@ -223,10 +223,10 @@ class DetectTrackStep:
     def __call__(self, model: YOLOv8, frames: torch.Tensor, state: TrackState):
         out = self.core(model, frames)
         det, feats = out if self.core.with_team_features else (out, None)
-        with record_function("tracker_scan"):
+        with annotate("tracker_scan"):
             state2, tids = tracker_scan(state, *tracker_inputs(det),
                                         **self.tracker_kwargs)
-        with record_function("pack"):
+        with annotate("pack"):
             cols = [det.boxes, det.scores[..., None],
                     det.classes.float()[..., None], tids.float()[..., None]]
             if feats is not None:
@@ -295,7 +295,7 @@ class Detector:
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
         detector's device; with team features, (Detections, features
         (B, D, 4)); for a pose model, (Detections, keypoints (B, K, 3))."""
-        with record_function("upload"):
+        with annotate("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
             return self.core(self.model, x)
@@ -326,7 +326,7 @@ class Detector:
                 pre_topk=c.nms_pre_topk, max_det=self.max_det,
                 dtype=self.dtype, with_team_features=self.with_team_features)
             self._track_step = DetectTrackStep(core, self.tracker_kwargs())
-        with record_function("upload"):
+        with annotate("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
             return self._track_step(self.model, x, state)

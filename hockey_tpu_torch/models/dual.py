@@ -25,12 +25,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import Config
 from ..core.device import resolve_device
 from ..ops.letterbox import letterbox_batch
 from ..ops.nms import Detections
+from ..utils.profiling import annotate
 from .checkpoint import load_params, shipped_weights_path
 from .detector import (DetectCore, HostDetections, best_keypoints,
                        letterbox_geometry)
@@ -47,7 +47,7 @@ class DualStep:
     """(player model, rink model, frames (B, H, W, 3) uint8 on the device)
     -> (Detections, team features (B, D, 4) or None, keypoints (B, K, 3) in
     frame px, packed (B, D * C + 3K) f32) (hockey_tpu dual.py:37-115).
-    Each rink stage is a `record_function` range: rink_letterbox,
+    Each rink stage is an `annotate` range: rink_letterbox,
     rink_forward, rink_decode; the player branch keeps the detect step's
     ranges, and `pack` is the last."""
 
@@ -63,11 +63,11 @@ class DualStep:
         (B, K, 3) in frame px, letterboxed in the model's dtype."""
         hw = (self.rink_imgsz, self.rink_imgsz)
         dtype = next(rink_model.buffers()).dtype
-        with record_function("rink_letterbox"):
+        with annotate("rink_letterbox"):
             x = letterbox_batch(frames, self.rink_imgsz, dtype)
-        with record_function("rink_forward"):
+        with annotate("rink_forward"):
             raw = forward_raw(rink_model, x)
-        with record_function("rink_decode"):
+        with annotate("rink_decode"):
             _, scores = decode_boxes(raw, self.rink_cfg, hw)
             return best_keypoints(decode_keypoints(raw, self.rink_cfg, hw),
                                   scores.max(dim=-1).values, self.rink_geometry)
@@ -77,7 +77,7 @@ class DualStep:
         out = self.core(player_model, frames)
         det, feats = out if self.core.with_team_features else (out, None)
         kpts = self.rink_keypoints(rink_model, frames)
-        with record_function("pack"):
+        with annotate("pack"):
             cols = [det.boxes, det.scores[..., None],
                     det.classes.float()[..., None], det.valid.float()[..., None]]
             if feats is not None:
@@ -149,7 +149,7 @@ class DualDetector:
     def run(self, frames):
         """The step on the device: (Detections, team features or None,
         keypoints (B, K, 3), packed), all on the detector's device."""
-        with record_function("upload"):
+        with annotate("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
             return self.step(self.player_model, self.rink_model, x)

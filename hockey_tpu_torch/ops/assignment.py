@@ -17,15 +17,18 @@ PyTorch every `while` test on a device value is a host sync, so:
   residual is all `_NEG` would otherwise pair row 0 with column 0).
 
 So one association costs (auction rounds run + 1) host syncs; `stats`
-counts them. The body uses no `.item()`, boolean-mask indexing or
-`nonzero`; `.at[...].set(mode="drop")` becomes a scatter into a buffer one
-slot longer whose last slot is dropped. `torch.argmax` returns the first
-maximum, as `jnp.argmax` does.
+counts them, and each is an `auction_sync` range around the read alone
+(the launches of the condition's ops lie outside it). The body uses no
+`.item()`, boolean-mask indexing or `nonzero`; `.at[...].set(mode="drop")`
+becomes a scatter into a buffer one slot longer whose last slot is
+dropped. `torch.argmax` returns the first maximum, as `jnp.argmax` does.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import annotate
 
 _NEG = -1e9
 
@@ -113,7 +116,9 @@ def auction_match(
 
     it = 0
     while True:
-        bidding, n_fill = _status(b, owner, assign, gave_up).tolist()
+        status = _status(b, owner, assign, gave_up)
+        with annotate("auction_sync"):
+            bidding, n_fill = status.tolist()
         stats.syncs += 1
         if not bidding or it >= max_rounds:
             break

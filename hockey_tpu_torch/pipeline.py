@@ -44,6 +44,11 @@ keypoints first and gives the calibrator's motion probe that drawn frame,
 as the JAX package does; the numeric entry points draw nothing and give
 it the raw frame. PUCK_DETECTION ignores both options: the JAX package
 builds the rink detector in that mode and never runs it.
+
+Under a `torch.profiler` profile every `StageTimers` stage is a range of
+its name (`puck_track` is the puck tracker's), and inside `detect` the
+step's outputs cross to the host in a `fetch` range (the host's wait for
+the step) and become host rows in an `unpack` range.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ from .tracking.bytetrack import ByteTrack
 from .tracking.device_tracker import DeviceByteTrack
 from .ui.team_selector import InteractiveTeamSelector
 from .utils.metrics import StageTimers
+from .utils.profiling import annotate
 from .video.io import VideoInfo, VideoSink, batched, frame_generator, prefetched
 
 _TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
@@ -241,14 +247,16 @@ class VideoProcessor:
         with self.timers.stage("detect"):
             out = self.player_detector.detect_batch(frames)
             det, feats = out if self._fused_features else (out, None)
-            det = Detections(*(t.cpu() for t in det))
-            feats = None if feats is None else feats.cpu().numpy()
-            rows = []
-            for i in range(n):
-                d = HostDetections.from_padded(det, i)
-                tf = None if feats is None else \
-                    feats[i][det.valid[i].numpy()][self._keep(d)]
-                rows.append((self._filter(d), tf))
+            with annotate("fetch"):
+                det = Detections(*(t.cpu() for t in det))
+                feats = None if feats is None else feats.cpu().numpy()
+            with annotate("unpack"):
+                rows = []
+                for i in range(n):
+                    d = HostDetections.from_padded(det, i)
+                    tf = None if feats is None else \
+                        feats[i][det.valid[i].numpy()][self._keep(d)]
+                    rows.append((self._filter(d), tf))
         for d, _ in rows:
             self.timers.count("detections", len(d))
         return rows
@@ -368,7 +376,8 @@ class VideoProcessor:
         if self.mode != ProcessingMode.PUCK_DETECTION:
             raise ValueError("puck_frames needs mode PUCK_DETECTION")
         for _, boxes, scores in self._puck_steps(frames):
-            center, detection, _ = self.puck_pipeline.ingest(boxes, scores)
+            with self.timers.stage("puck_track"):
+                center, detection, _ = self.puck_pipeline.ingest(boxes, scores)
             yield PuckResult(boxes, scores, center, detection)
 
     # ------------------------------------------------------------------
@@ -604,13 +613,15 @@ def unpack_tracked(out) -> List[Tuple]:
     that acquired an emittable track id, from the one `packed` tensor: one
     device-to-host copy per batch (hockey_tpu pipeline.py:476-491; the
     port's fused step always packs)."""
-    arr = out[3].cpu().numpy()
-    rows = []
-    for i in range(arr.shape[0]):
-        r = arr[i][arr[i, :, 6] >= 0]
-        rows.append((r[:, :4], r[:, 4], r[:, 5].astype(np.int32),
-                     r[:, 6].astype(np.int32),
-                     r[:, 7:] if arr.shape[-1] > 7 else None))
+    with annotate("fetch"):
+        arr = out[3].cpu().numpy()
+    with annotate("unpack"):
+        rows = []
+        for i in range(arr.shape[0]):
+            r = arr[i][arr[i, :, 6] >= 0]
+            rows.append((r[:, :4], r[:, 4], r[:, 5].astype(np.int32),
+                         r[:, 6].astype(np.int32),
+                         r[:, 7:] if arr.shape[-1] > 7 else None))
     return rows
 
 

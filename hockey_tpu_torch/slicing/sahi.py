@@ -19,12 +19,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.config import Config
 from ..models.detector import Detector
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
+from ..utils.profiling import annotate
 
 # the merge: IoU threshold, candidates per frame at most, boxes kept
 # (hockey_tpu sahi.py:80-101); each tile keeps at most TILE_MAX_DET
@@ -99,16 +99,18 @@ class SlicedDetector:
         """(K, H, W, 3) uint8 frames -> (boxes (K, 4, 4), scores (K, 4),
         valid (K, 4)) on the host: one upload, the tiles cut on the device,
         one forward with per-tile NMS, one merge, one copy back."""
-        with record_function("upload"):
+        with annotate("upload"):
             x = torch.as_tensor(frames).to(self.device)
         with torch.inference_mode():
-            with record_function("slice"):
+            with annotate("slice"):
                 tiles = self.tiles(x)
             det = self.detector.core(self.detector.model, tiles)
-            with record_function("merge"):
+            with annotate("merge"):
                 m = self.merge(det)
-        packed = torch.cat([m.boxes, m.scores[..., None],
-                            m.valid.float()[..., None]], dim=-1).cpu().numpy()
+            packed = torch.cat([m.boxes, m.scores[..., None],
+                                m.valid.float()[..., None]], dim=-1)
+        with annotate("fetch"):
+            packed = packed.cpu().numpy()
         return packed[..., :4], packed[..., 4], packed[..., 5] > 0
 
     def detect(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

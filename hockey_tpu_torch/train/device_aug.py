@@ -23,7 +23,8 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from ..utils.profiling import annotate
 
 MAX_GT = 64
 H_GAIN, S_GAIN, V_GAIN = 0.015, 0.7, 0.4
@@ -239,7 +240,7 @@ def make_device_batch_fn(s: int, batch: int, max_gt: int = MAX_GT,
     """batch_fn(pool, gen) -> an augmented batch on the pool's device."""
 
     def batch_fn(pool, gen):
-        with record_function("augment"):
+        with annotate("augment"):
             draws = sample_draws(gen, pool["images"].shape[0], batch, mixup_prob > 0)
             return augment_batch(pool, draws, s, batch, max_gt, mosaic_prob,
                                  mixup_prob, flip_prob, hsv)
@@ -251,7 +252,7 @@ def make_pose_batch_fn(batch: int, hsv: bool = True):
     """batch_fn(pool, gen) -> a pose batch on the pool's device."""
 
     def batch_fn(pool, gen):
-        with record_function("augment"):
+        with annotate("augment"):
             return pose_batch(pool, sample_pose_draws(
                 gen, pool["images"].shape[0], batch), hsv)
 

@@ -11,11 +11,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..core.device import device_constant
 from ..models.yolov8 import YoloConfig, anchor_points
 from ..ops.iou import ciou
+from ..utils.profiling import annotate
 from .assigner import assign_batch
 
 BOX_W, CLS_W, DFL_W = 7.5, 0.5, 1.5
@@ -81,7 +81,7 @@ def detection_loss(raw: Dict, batch: Dict[str, torch.Tensor], cfg: YoloConfig,
     # targets t = align / max_align * max_iou the optimiser shrinks the
     # targets by making predictions worse (TAL's degenerate minimum;
     # hockey_tpu/train/loop.py:9-14)
-    with torch.no_grad(), record_function("tal_assign"):
+    with torch.no_grad(), annotate("tal_assign"):
         assign = assign_batch(torch.sigmoid(cls_flat).detach(),
                               pred_xyxy_px.detach(), pts_px, batch["boxes"],
                               batch["classes"], batch["mask"], num_classes=nc)

@@ -23,10 +23,10 @@ from typing import Dict, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.layers import Conv, trainable
 from ..models.yolov8 import YoloConfig, forward_raw
+from ..utils.profiling import annotate
 from .losses import detection_loss
 
 BN_MOMENTUM = 0.03  # ultralytics BatchNorm2d momentum
@@ -150,16 +150,16 @@ class Trainer:
         'keypoints'). Returns the loss's metrics with 'grad_norm' and
         'skipped' (1.0 when the update was discarded)."""
         stats = self._stats()
-        with record_function("train_forward"):
+        with annotate("train_forward"):
             raw = forward_raw(self.model, batch["images"].to(self.dtype), stats)
-        with record_function("train_loss"):
+        with annotate("train_loss"):
             loss, metrics = detection_loss(raw, batch, self.cfg, self.tc.imgsz,
                                            global_sum=self._global_sum)
-        with record_function("train_backward"):
+        with annotate("train_backward"):
             for p in self.params:
                 p.grad = None
             loss.backward()
-        with record_function("train_update"):
+        with annotate("train_update"):
             for p in self.params:  # a head the loss does not reach: zero grads
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -177,7 +177,7 @@ class Trainer:
                 update_bn_stats(self.model, stats)
                 self.count += 1
         if self.ema is not None:
-            with record_function("train_ema"):
+            with annotate("train_ema"):
                 self.ema.update(self.model)
         out = {k: v.detach() for k, v in metrics.items()}
         out["grad_norm"] = gn.detach()

@@ -9,9 +9,13 @@ import time
 from collections import defaultdict
 from typing import Dict, Optional
 
+from .profiling import annotate
+
 
 class StageTimers:
-    """Wall-clock accumulators per pipeline stage + frame counters."""
+    """Wall-clock accumulators per pipeline stage + frame counters. Each
+    stage is also an `annotate` range of its name, so a profiler trace
+    shows the stages beside the device's work."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -23,7 +27,8 @@ class StageTimers:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1

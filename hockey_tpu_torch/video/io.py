@@ -11,6 +11,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 
 @dataclasses.dataclass
 class VideoInfo:
@@ -65,17 +67,23 @@ def batched(frames: Iterator[np.ndarray], batch: int
             ) -> Iterator[Tuple[np.ndarray, int]]:
     """Group frames into (B, H, W, 3) batches; the final batch is padded by
     repeating its last frame so device shapes stay static, and the second
-    element is the true frame count."""
+    element is the true frame count. Each stacking is a `stack` range; the
+    range closes before the batch is yielded, so it never times the
+    consumer."""
     buf: List[np.ndarray] = []
     for frame in frames:
         buf.append(frame)
         if len(buf) == batch:
-            yield np.stack(buf), batch
+            with annotate("stack"):
+                out = np.stack(buf)
+            yield out, batch
             buf = []
     if buf:
         n = len(buf)
         buf.extend([buf[-1]] * (batch - n))
-        yield np.stack(buf), n
+        with annotate("stack"):
+            out = np.stack(buf)
+        yield out, n
 
 
 def prefetched(generator, depth: int = 2):

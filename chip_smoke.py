@@ -35,16 +35,33 @@ Phases, each announced on its own line with the elapsed seconds:
    the plain suppression's kept sets must be equal and the kernel's half
    must give the run's detections, the card's track ids must equal a replay of
    `tracker_scan` on the CPU over the same padded detections copied from
-   the card, and every frame's ids must be positive and distinct; it
+   the card, and every frame's ids must be positive and distinct; the
+   tracker must have run as one launch of its CUDA kernel per batch with
+   no host sync; it
    prints frames/s, the tracker's ms per batch (CUDA events and host
    clock, from a replay of `tracker_scan` on the card over the run's own
-   detections), host syncs per batch (counted in `auction_match`), CUDA
+   detections), host syncs per batch (counted in `auction_match`, 0 on
+   the card), the kernel's auction rounds and fill steps per batch, CUDA
    kernel launches per batch in the tracker (torch.profiler), the count
    of distinct ids and id switches against the generator's own players;
    the jersey-number reader (the digit net on the card) must have read
    crops, whose card logits must match the same net on the CPU in f32
    within 1e-3 with equal argmax; it prints the reads and the reader's
    host ms per batch; and these numbers as one JSON line;
+5b. the tracker's kernel (csrc/tracker_scan.cu) against the plain
+   `tracker_scan_reference` on the card at the main path's shapes (T =
+   128, D = 64, batches of 8), on phase 5's own detections and on a crowd
+   of 20-22 overlapping boxes a frame (`crowded_sequence`), each side
+   carrying its own state from init_state: ids and every integer and
+   boolean field equal batch by batch, mean, cov and score within rtol
+   1e-5 and atol 1e-4 (the tests' tolerance; the largest gap is the
+   `kernels` line's `max_abs_err`), the kernel's rounds and fill steps
+   equal to the plain solver's;
+   on a batch from a live state, the kernel's device ms per launch
+   (torch.profiler, by the kernel's name), its call ms (CUDA events over
+   back-to-back calls), the plain version's ms per batch on the card, the
+   bound (its bytes at the card's memory rate), launches, and rounds and
+   fill steps per association; a `{"tracker_kernel": ...}` JSON line;
 6. TEAM_CLASSIFICATION, the reference's main path: a VideoProcessor in
    that mode builds its own detector with the team branch; `fit_teams`
    fits the team classifier on every 10th of the same 24 frames, then
@@ -52,7 +69,8 @@ Phases, each announced on its own line with the elapsed seconds:
    `tracker_scan`, team features; one packed (8, 64, 11) copy per batch)
    over 3 batches of 8. The tracker must be the fused one and `packed` 11
    wide; the kernel must launch at least 3 times and, on the last batch,
-   keep the plain suppression's set; the card's ids must equal a CPU
+   keep the plain suppression's set; the tracker's kernel must launch
+   once a batch; the card's ids must equal a CPU
    replay of `tracker_scan`; the last batch's team features from the card
    must match the plain team branch recomputed on the CPU in f32 from the
    same frames and the card's own boxes (dominant_hue equal, white_ratio
@@ -322,9 +340,12 @@ from hockey_tpu_torch.tracking import bytetrack, native  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import (  # noqa: E402
     DeviceByteTrack,
+    TrackState,
     init_state,
     tracker_scan,
+    tracker_scan_reference,
 )
+from hockey_tpu_torch.tracking.scan_kernel import scan as scan_kernel  # noqa: E402
 from hockey_tpu_torch.models.yolov8 import MODEL_ZOO  # noqa: E402
 from hockey_tpu_torch.models.checkpoint import flatten_tree  # noqa: E402
 from hockey_tpu_torch.train import loop as train_loop  # noqa: E402
@@ -367,6 +388,7 @@ MULTICLIP_BOX_PX = 0.1
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_NAME = "nms_suppress_kernel"  # the CUDA kernel's name in a trace
+TRACKER_KERNEL_NAME = "tracker_scan_kernel"
 # phase 8's tolerances, bf16 on the card against f32 on the CPU, in 1080p
 # frame px (the rink model sees the frame at 512 / 1920 of its size, so
 # 24 px is 6.4 px at its input): keypoints confident (>= 0.3) on both
@@ -923,6 +945,132 @@ def replay_on_card(inputs, kwargs, capacity: int):
     return tids, ev_ms, host_ms
 
 
+_TRACK_INT_FIELDS = ("track_id", "active", "tracked", "consecutive",
+                     "activated", "missed", "class_id", "next_id")
+_TRACK_FLOAT_FIELDS = ("mean", "cov", "score")
+
+
+def crowded_sequence(seed, k, d, n_targets=22):
+    """(boxes (K, D, 4), scores, classes, valid) of a crowd: `n_targets`
+    overlapping boxes a frame in a 300 x 200 px patch, each jittering by
+    a few pixels and now and then swapping places with a neighbour, with
+    scores in both bands, so that rows compete for columns through many
+    auction rounds and the greedy fill takes what the auction leaves."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((k, d, 4), np.float32)
+    scores = np.full((k, d), -1.0, np.float32)
+    classes = np.zeros((k, d), np.int32)
+    valid = np.zeros((k, d), bool)
+    pos = rng.uniform(0, 1, (n_targets, 2)) * [300, 200] + [600, 400]
+    size = rng.uniform(40, 70, (n_targets, 2)) * [1, 2]
+    for f in range(k):
+        pos = pos + rng.normal(0, 4, pos.shape)
+        if f % 3 == 2:  # a pair of neighbours trades places
+            a, b = rng.choice(n_targets, 2, replace=False)
+            pos[[a, b]] = pos[[b, a]]
+        n = int(rng.integers(n_targets - 2, n_targets + 1))
+        rows = rng.permutation(n_targets)[:n]
+        for i, j in enumerate(rows):
+            x, y = pos[j]
+            w, h = size[j]
+            boxes[f, i] = [x, y, x + w, y + h]
+            scores[f, i] = rng.choice([0.9, 0.6, 0.3, 0.15], p=[.5, .2, .2, .1])
+            classes[f, i] = int(rng.random() < 0.1)
+            valid[f, i] = True
+    return boxes, scores, classes, valid
+
+
+def tracker_bound(state: TrackState, x) -> tuple:
+    """(bound ms, bytes) of one tracker launch: the state read and written
+    once, the batch's detections read and its ids written once, at the
+    card's memory rate (its operations, a (T, D) IoU matrix and a few
+    hundred 4x4 solves a batch, take less at its f32 rate)."""
+    state_bytes = sum(v.numel() * v.element_size() for v in state)
+    det_bytes = sum(v.numel() * v.element_size() for v in x)
+    nbytes = 2 * state_bytes + det_bytes + 4 * x[0].shape[0] * x[0].shape[1]
+    return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
+
+
+def tracker_kernel_phase(inputs, kwargs, capacity: int) -> dict:
+    """Phase 5b: the tracker's kernel against the plain version on the
+    card, on `inputs` (phase 5's detections) and on a crowd; returns the
+    numbers of each (`max_abs_err`: the largest gap of mean, cov and
+    score over every batch), and prints them as one JSON line."""
+    dev = torch.device("cuda")
+    n = sum(x[0].shape[0] for x in inputs)
+    crowd = [tuple(torch.from_numpy(v[s:s + BATCH]).to(dev) for v in data)
+             for data in [crowded_sequence(0, n, inputs[0][0].shape[1])]
+             for s in range(0, n, BATCH)]
+    stages = 3 if kwargs.get("lost_reacquire_floor", 0.0) > 0.0 else 2
+    out = {}
+    for name, batches in (("main", inputs), ("crowd", crowd)):
+        st = assignment.stats
+        st.syncs = st.rounds = st.fill_steps = 0
+        scan_kernel.reset()
+        ks = ps = init_state(capacity, dev)
+        live = None  # the state before the second batch, for the timing
+        err = 0.0
+        with torch.inference_mode():
+            for b, x in enumerate(batches):
+                if b == 1:
+                    live = ks
+                ks, kt = tracker_scan(ks, *x, **kwargs)
+                ps, pt = tracker_scan_reference(ps, *x, **kwargs)
+                same = torch.equal(kt, pt) and all(
+                    torch.equal(getattr(ks, f), getattr(ps, f))
+                    for f in _TRACK_INT_FIELDS)
+                if not same:
+                    raise AssertionError(f"{name}, batch {b}: the tracker "
+                                         "kernel differs from the plain version")
+                for f in _TRACK_FLOAT_FIELDS:
+                    got, want = getattr(ks, f), getattr(ps, f)
+                    err = max(err, (got - want).abs().max().item())
+                    if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
+                        raise AssertionError(
+                            f"{name}, batch {b}: the kernel's {f} is off the "
+                            "plain version's by more than rtol 1e-5, atol 1e-4")
+        counts = scan_kernel.counts(dev)
+        launches = scan_kernel.launches
+        if counts != {"rounds": st.rounds, "fill_steps": st.fill_steps}:
+            raise AssertionError(f"{name}: kernel counts {counts}, plain "
+                                 f"rounds {st.rounds} fill {st.fill_steps}")
+        if launches != len(batches):
+            raise AssertionError(f"{name}: {launches} launches for "
+                                 f"{len(batches)} batches")
+        assoc = stages * n
+        x = batches[1]
+        with torch.inference_mode():
+            def kernel():
+                return tracker_scan(live, *x, **kwargs)
+
+            def plain():
+                return tracker_scan_reference(live, *x, **kwargs)
+
+            ms, how = device_ms(kernel, kernel=TRACKER_KERNEL_NAME)
+            call_ms = time_ms(kernel, 200)
+            plain_ms = time_ms(plain, 5)
+        bound_ms, nbytes = tracker_bound(live, x)
+        out[name] = dict(
+            ms=ms, how=how, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+            shape=[x[0].shape[0], capacity, x[0].shape[1]],
+            launches=launches, frames=n,
+            rounds_per_association=counts["rounds"] / assoc,
+            fill_steps_per_association=counts["fill_steps"] / assoc,
+            plain_host_syncs_per_batch=st.syncs / len(batches),
+            ids_equal=True, max_abs_err=err)
+        print(f"tracker kernel, {name} (B={BATCH}, T={capacity}, "
+              f"D={x[0].shape[1]}): ids and integer fields == plain on "
+              f"{len(batches)} batches, mean, cov and score within "
+              f"{err:.3g}; device {ms:.4f} ms per launch ({how}), "
+              f"call {call_ms:.4f} ms, plain {plain_ms:.3f} ms per batch on "
+              f"the card, bound {bound_ms:.6f} ms ({nbytes} bytes); rounds "
+              f"{counts['rounds'] / assoc:.2f} and fill steps "
+              f"{counts['fill_steps'] / assoc:.2f} per association", flush=True)
+    print(json.dumps({"tracker_kernel": out}), flush=True)
+    return out
+
+
 def match_fraction(a, b, iou_min=0.8):
     """Fraction of the detections in `a` that have a same-class detection
     in `b` with IoU >= iou_min (HostDetections on the host)."""
@@ -1084,8 +1232,9 @@ def puck_phase(config, max_err):
 
 def team_phase(config, frames, max_err, track_fps):
     """Phase 6; returns (kernel launches over classify_frames, max_err, the
-    detector with the team branch). `track_fps` is phase 5's frames/s,
-    printed beside this path's."""
+    detector with the team branch, the tracker kernel's launches over
+    classify_frames). `track_fps` is phase 5's frames/s, printed beside
+    this path's."""
     t = time.perf_counter()
     vp = VideoProcessor(config, device="cuda", frame_hw=FRAME_HW,
                         mode=ProcessingMode.TEAM_CLASSIFICATION,
@@ -1110,6 +1259,7 @@ def team_phase(config, frames, max_err, track_fps):
           flush=True)
 
     suppress.launches = 0
+    scan_kernel.reset()
     results, outs, marks = [], [], []
     t = time.perf_counter()
     for r in vp.classify_frames(iter(frames)):
@@ -1119,6 +1269,10 @@ def team_phase(config, frames, max_err, track_fps):
         if len(results) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_c = suppress.launches
+    tracker_launches_c = scan_kernel.launches
+    if tracker_launches_c != N_BATCHES:
+        raise AssertionError(f"the tracker kernel launched {tracker_launches_c} "
+                             f"times over {N_BATCHES} batches of classify_frames")
     fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
@@ -1220,7 +1374,7 @@ def team_phase(config, frames, max_err, track_fps):
     print(f"team_features range: {team_ms:.4f} ms device, {team_launches} "
           f"launches per batch of {BATCH}", flush=True)
     print(json.dumps({"teams": teams}), flush=True)
-    return launches_c, max_err, det
+    return launches_c, max_err, det, tracker_launches_c
 
 
 def near_best_keypoints(step, model, frames, top: int = 5):
@@ -2995,6 +3149,7 @@ def main() -> int:
     st = assignment.stats
     suppress.launches = 0
     st.syncs = st.rounds = st.fill_steps = 0
+    scan_kernel.reset()
     rows, outs, marks = [], [], []
     t = time.perf_counter()
     for r in vp_t.track_frames(iter(frames)):
@@ -3004,7 +3159,14 @@ def main() -> int:
         if len(rows) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_t = suppress.launches
-    syncs, rounds, fills = st.syncs, st.rounds, st.fill_steps
+    syncs = st.syncs
+    tracker_launches_t = scan_kernel.launches
+    rounds, fills = scan_kernel.counts(dev).values()
+    if syncs or tracker_launches_t != N_BATCHES:
+        raise AssertionError(f"the tracker synced {syncs} times and launched "
+                             f"its kernel {tracker_launches_t} times over "
+                             f"{N_BATCHES} batches: it must be one launch a "
+                             "batch with no host sync")
     track_fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
@@ -3095,11 +3257,16 @@ def main() -> int:
     tracking.update(ocr_check(ocr, ocr_calls, vp_t.timers))
     print(json.dumps({"tracking": tracking}), flush=True)
 
+    phase("5b tracker_scan kernel vs the plain tracker_scan on the card "
+          "(T=128, D=64, batches of 8)")
+    tracker_kernel = tracker_kernel_phase(inputs, kwargs, config.max_tracks)
+
     phase("6 TEAM_CLASSIFICATION: fit_teams, then the fused detect + track + "
           "team step through VideoProcessor.classify_frames")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the crop products must be f32")
-    launches_c, max_err, det_team = team_phase(config, frames, max_err, track_fps)
+    launches_c, max_err, det_team, tracker_launches_c = team_phase(
+        config, frames, max_err, track_fps)
 
     phase("7 PUCK_DETECTION: YOLOv8s bf16 on 8 tiles of 640 per 1080p frame, "
           "VideoProcessor.puck_frames")
@@ -3164,6 +3331,18 @@ def main() -> int:
         **main,
         "library_ms": None,
         "sites": SITES,
+    }, {
+        "name": "tracker_scan",
+        "route": "cuda",
+        "source": "hockey_tpu_torch/csrc/tracker_scan.cu",
+        "replaces": None,  # no TPU kernel: XLA ops under lax.scan
+        # the main paths' runs, each counted from a reset just before it
+        "launches": tracker_launches_t + tracker_launches_c,
+        "max_abs_err": max(s["max_abs_err"] for s in tracker_kernel.values()),
+        **{k: tracker_kernel["main"][k] for k in ("ms", "call_ms", "plain_ms",
+                                                  "bound_ms", "bound_by")},
+        "library_ms": None,
+        "sites": tracker_kernel,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

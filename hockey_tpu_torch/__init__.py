@@ -9,7 +9,9 @@ Ported so far: PLAYER_DETECTION (letterbox -> YOLOv8 -> DFL decode -> NMS
 -> box un-mapping), with the greedy NMS suppression as a hand-written
 sm_90a CUDA kernel (`ops/nms_kernel.py`, `csrc/nms_suppress.cu`),
 PLAYER_TRACKING (the fused detect + track step with the on-device
-ByteTrack of `tracking/device_tracker.py`, or the host ByteTrack),
+ByteTrack of `tracking/device_tracker.py`, a batch of frames a launch of
+the sm_90a CUDA kernel of `tracking/scan_kernel.py` and
+`csrc/tracker_scan.cu`, or the host ByteTrack),
 TEAM_CLASSIFICATION, the default mode (the same step with the team
 features of `teams/`, and the whole cascade of team classifiers, with
 MobileNetV3 embeddings and the port's own clusterings),

@@ -18,10 +18,16 @@ PyTorch every `while` test on a device value is a host sync, so:
 
 So one association costs (auction rounds run + 1) host syncs; `stats`
 counts them, and each is an `auction_sync` range around the read alone
-(the launches of the condition's ops lie outside it). The body uses no
-`.item()`, boolean-mask indexing or `nonzero`; `.at[...].set(mode="drop")`
-becomes a scatter into a buffer one slot longer whose last slot is
-dropped. `torch.argmax` returns the first maximum, as `jnp.argmax` does.
+(the launches of the condition's ops lie outside it). This eager solver is
+the plain version that the CPU runs and that the tracker's CUDA kernel
+(tracking/scan_kernel.py, csrc/tracker_scan.cu) repeats inside one launch
+with no host sync; on CUDA tensors the tracker takes only the kernel, so
+`stats` counts nothing there and the kernel keeps its own counters.
+
+The body uses no `.item()`, boolean-mask indexing or `nonzero`;
+`.at[...].set(mode="drop")` becomes a scatter into a buffer one slot
+longer whose last slot is dropped. `torch.argmax` returns the first
+maximum, as `jnp.argmax` does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch
 from ..utils.profiling import annotate
 
 _NEG = -1e9
+AUCTION_EPS = 2e-3       # the bid increment
+AUCTION_MAX_ROUNDS = 96  # the auction's bound on its rounds
 
 
 class AssignmentStats:
@@ -93,8 +101,8 @@ def auction_match(
     benefit: torch.Tensor,   # (T, D), e.g. IoU
     row_ok: torch.Tensor,    # (T,) bool
     col_ok: torch.Tensor,    # (D,) bool
-    eps: float = 2e-3,
-    max_rounds: int = 96,
+    eps: float = AUCTION_EPS,
+    max_rounds: int = AUCTION_MAX_ROUNDS,
 ) -> torch.Tensor:
     """Maximum-total-benefit bipartite matching (hockey_tpu
     ops/assignment.py:30-114). Returns (T,) int32: the column assigned to

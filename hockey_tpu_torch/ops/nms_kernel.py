@@ -22,7 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,18 +43,21 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build_library() -> str:
-    """Compile csrc/nms_suppress.cu (once per source hash); returns the
+def build_library(source: str = SOURCE, prefix: str = "nms",
+                  extra_flags: Tuple[str, ...] = ()) -> str:
+    """Compile `source` (csrc/nms_suppress.cu by default) once per hash of
+    the source and the flags, into `lib<prefix>_<hash>.so`; returns the
     shared library's path."""
-    with open(SOURCE, "rb") as f:
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    with open(source, "rb") as f:
         src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = os.path.join(BUILD_DIR, f"libnms_{digest[:16]}.so")
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    out = os.path.join(BUILD_DIR, f"lib{prefix}_{digest[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([find_nvcc(), *flags, "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")

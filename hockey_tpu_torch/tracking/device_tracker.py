@@ -6,10 +6,15 @@ The whole tracker state lives in device tensors; one step runs KF
 predict/update, the IoU cost matrix and the two-stage (optionally
 three-stage) association per frame for every slot of a fixed-capacity
 track table, with the host tracker's semantics (tracking/bytetrack.py).
-Association solves the assignment with the auction of ops/assignment.py,
-whose loop tests its condition on the host once per round: that is the
-step's only host sync. `tracker_scan` is a Python loop over
-the batch's frames, where JAX has a `lax.scan`.
+
+`tracker_scan` steps a batch of frames. On CUDA tensors it is one launch
+of the CUDA kernel of tracking/scan_kernel.py (csrc/tracker_scan.cu), with
+no host sync, and raises on what the kernel does not take; on CPU tensors
+it is `tracker_scan_reference`, a Python loop of `tracker_step` where JAX
+has a `lax.scan`. `tracker_step` and `tracker_scan_reference` are the plain
+version the kernel is held to: association solves the assignment with the
+auction of ops/assignment.py, whose loop tests its condition on the host
+once per round.
 
 The step is functional: it never writes into the state it is given, so
 a state made under `torch.inference_mode()` (the fused detect step's) and
@@ -22,6 +27,7 @@ applied as the adds it amounts to, so no constant matrix is uploaded.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -31,6 +37,7 @@ from ..core.config import Config
 from ..core.device import resolve_device
 from ..ops.assignment import auction_match
 from ..ops.iou import box_iou
+from .scan_kernel import scan as scan_kernel
 
 
 class TrackState(NamedTuple):
@@ -327,6 +334,31 @@ def tracker_step(
     return new_state, det_tid
 
 
+# tracker_step's settings and their defaults
+STEP_DEFAULTS = {k: p.default for k, p in
+                 inspect.signature(tracker_step).parameters.items()
+                 if p.kind is inspect.Parameter.KEYWORD_ONLY}
+
+
+def tracker_scan_reference(
+    state: TrackState,
+    boxes: torch.Tensor,    # (B, D, 4)
+    scores: torch.Tensor,   # (B, D)
+    classes: torch.Tensor,  # (B, D) int32
+    valid: torch.Tensor,    # (B, D) bool
+    **static_kwargs,
+) -> Tuple[TrackState, torch.Tensor]:
+    """B frames of tracking in order (device_tracker.py:354-372), a
+    `tracker_step` each: returns (state after the last frame,
+    det_track_ids (B, D) int32)."""
+    tids = []
+    for f in range(boxes.shape[0]):
+        state, tid = tracker_step(state, boxes[f], scores[f], classes[f],
+                                  valid[f], **static_kwargs)
+        tids.append(tid)
+    return state, torch.stack(tids)
+
+
 def tracker_scan(
     state: TrackState,
     boxes: torch.Tensor,    # (B, D, 4)
@@ -335,14 +367,17 @@ def tracker_scan(
     valid: torch.Tensor,    # (B, D) bool
     **static_kwargs,
 ) -> Tuple[TrackState, torch.Tensor]:
-    """B frames of tracking in order (device_tracker.py:354-372): returns
-    (state after the last frame, det_track_ids (B, D) int32)."""
-    tids = []
-    for f in range(boxes.shape[0]):
-        state, tid = tracker_step(state, boxes[f], scores[f], classes[f],
-                                  valid[f], **static_kwargs)
-        tids.append(tid)
-    return state, torch.stack(tids)
+    """B frames of tracking in order: `tracker_scan_reference` on CPU
+    tensors, one launch of the CUDA kernel on CUDA tensors (no fallback:
+    it raises on a dtype, shape or size it does not take). Returns (state
+    after the last frame, det_track_ids (B, D) int32); the state given is
+    not written."""
+    if boxes.device.type == "cpu":
+        return tracker_scan_reference(state, boxes, scores, classes, valid,
+                                      **static_kwargs)
+    fields, tids = scan_kernel(state, boxes, scores, classes, valid,
+                               **{**STEP_DEFAULTS, **static_kwargs})
+    return TrackState(*fields), tids
 
 
 # the host ByteTrack's keywords: Config fields that set the tracker
@@ -370,9 +405,10 @@ def step_kwargs(config: Config, activation_thresh=None) -> Dict:
 
 
 class DeviceByteTrack:
-    """Host-facing wrapper with the ByteTrack API over `tracker_step`
-    (device_tracker.py:375-423). The state stays on `device`; each update
-    pads the frame's detections to a power of two of at least 8."""
+    """Host-facing wrapper with the ByteTrack API over `tracker_scan` of
+    one frame (device_tracker.py:375-423). The state stays on `device`;
+    each update pads the frame's detections to a power of two of at least
+    8."""
 
     def __init__(self, capacity: int = 64, device="cuda", **kwargs):
         # the host ByteTrack's keywords, which are Config fields; the
@@ -407,10 +443,10 @@ class DeviceByteTrack:
         pc = np.zeros((d,), np.int32)
         pv = np.zeros((d,), bool)
         pb[:n], ps[:n], pc[:n], pv[:n] = boxes, scores, classes, True
-        self.state, det_tid = tracker_step(
-            self.state, *(torch.from_numpy(x).to(self.device)
+        self.state, det_tid = tracker_scan(
+            self.state, *(torch.from_numpy(x[None]).to(self.device)
                           for x in (pb, ps, pc, pv)), **self.kwargs)
-        det_tid = det_tid.cpu().numpy()[:n]
+        det_tid = det_tid[0].cpu().numpy()[:n]
         keep = det_tid >= 0
         # detection indices of the emitted rows (the host tracker's
         # last_indices contract)

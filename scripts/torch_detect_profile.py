@@ -105,6 +105,7 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
 )
 from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
 from hockey_tpu_torch.ops import assignment  # noqa: E402
+from hockey_tpu_torch.tracking.scan_kernel import scan  # noqa: E402
 from hockey_tpu_torch.slicing.sahi import SlicedDetector  # noqa: E402
 from hockey_tpu_torch.tracking.bytetrack import ByteTrack  # noqa: E402
 from hockey_tpu_torch.tracking.device_tracker import init_state  # noqa: E402
@@ -128,12 +129,13 @@ def tracker_alone(inputs, kwargs, capacity):
     out = {"host_ms": [], "event_ms": [], "syncs": [], "rounds": []}
     st = assignment.stats
     for _ in range(ALONE_TURNS):
-        st.syncs = st.rounds = 0
+        st.syncs = 0
+        scan.reset()
         _, ev, host = replay_on_card(inputs, kwargs, capacity)
         out["host_ms"].append(sum(host) / len(inputs))
         out["event_ms"].append(sum(ev) / len(inputs))
         out["syncs"].append(st.syncs / len(inputs))
-        out["rounds"].append(st.rounds / len(inputs))
+        out["rounds"].append(scan.counts()["rounds"] / len(inputs))
     return {m: [round(x, 4) for x in v] for m, v in out.items()}
 
 

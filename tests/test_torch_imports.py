@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: hockey_tpu_torch imports neither JAX nor
 the JAX package, builds no kernel through torch.utils.cpp_extension, and
-everything chip_smoke.py imports, the tracker, the PLAYER_TRACKING
+everything chip_smoke.py imports, the tracker and its CUDA kernel's
+wrapper, the PLAYER_TRACKING
 modules with the jersey-number OCR, the team modules of
 TEAM_CLASSIFICATION, the sliced puck detector, the dual step and the
 rink, homography and 2D-map modules, the rest of the team cascade
@@ -78,7 +79,8 @@ SMOKE_MODULES = (
     "hockey_tpu_torch.train.losses", "hockey_tpu_torch.train.assigner",
     "hockey_tpu_torch.train.val", "hockey_tpu_torch.models.convert",
     "hockey_tpu_torch.teams.embed_train", "hockey_tpu_torch.tracking.native",
-    "hockey_tpu_torch.core.mesh", "hockey_tpu_torch.parallel.sharding")
+    "hockey_tpu_torch.core.mesh", "hockey_tpu_torch.parallel.sharding",
+    "hockey_tpu_torch.tracking.scan_kernel")
 
 # the modules of the later slices: each loads alone with the imports blocked
 SLICE_MODULES = (

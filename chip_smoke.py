@@ -25,7 +25,8 @@ Phases, each announced on its own line with the elapsed seconds:
    equal and the kernel's half must give the main path's detections; two
    frames are held against an f32 CPU run of the same detector; the
    kernel's device time per launch, call time, plain time and bound on
-   the main path's own candidates;
+   the main path's own candidates; every batch must have been uploaded
+   from page-locked staging (core/staging.py), none by the pageable copy;
 5. PLAYER_TRACKING: the same detector through
    VideoProcessor(mode=PLAYER_TRACKING).track_frames, the fused detect +
    track step (T = 128 tracks, D = 64 detections), three batches of 8; the
@@ -47,7 +48,8 @@ Phases, each announced on its own line with the elapsed seconds:
    the jersey-number reader (the digit net on the card) must have read
    crops, whose card logits must match the same net on the CPU in f32
    within 1e-3 with equal argmax; it prints the reads and the reader's
-   host ms per batch; and these numbers as one JSON line;
+   host ms per batch; every batch must have been uploaded pinned, as in
+   phase 4; and these numbers, the upload counts too, as one JSON line;
 5b. the tracker's kernel (csrc/tracker_scan.cu) against the plain
    `tracker_scan_reference` on the card at the main path's shapes (T =
    128, D = 64, batches of 8), on phase 5's own detections and on a crowd
@@ -263,6 +265,7 @@ from hockey_tpu_torch.core.mesh import (  # noqa: E402
     shard_batch,
 )
 from hockey_tpu_torch.core.session import load_run_state, save_run_state  # noqa: E402
+from hockey_tpu_torch.core import staging  # noqa: E402
 from hockey_tpu_torch.homography.ransac import dlt_homography, project  # noqa: E402
 from hockey_tpu_torch.homography.calibrator import CalibratorState  # noqa: E402
 from hockey_tpu_torch.homography.keypoints import (  # noqa: E402
@@ -908,6 +911,16 @@ def team_accuracy(results, seed: int, players: int = 10):
         return 0.0, False, len(pairs)
     return (sum(mapping[g] == p for g, p in pairs) / len(pairs), True,
             len(pairs))
+
+
+def check_uploads(entry: str, uploads: dict) -> None:
+    """Every batch of `entry`'s N_BATCHES was uploaded from page-locked
+    staging (core/staging.py), none by the blocking pageable copy."""
+    print(f"uploads over {entry}: {uploads['pinned_uploads']} pinned, "
+          f"{uploads['pageable_uploads']} pageable", flush=True)
+    if uploads != {"pinned_uploads": N_BATCHES, "pageable_uploads": 0}:
+        raise AssertionError(f"{entry}: {uploads} over {N_BATCHES} batches; "
+                             "every batch must be uploaded pinned")
 
 
 def launches_in(prof, range_name: str) -> int:
@@ -3054,6 +3067,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     suppress.launches = 0
+    staging.stats.reset()
     dets, marks = [], []
     t = time.perf_counter()
     for d in vp.detect_frames(iter(frames)):
@@ -3061,6 +3075,7 @@ def main() -> int:
         if len(dets) % BATCH == 0:
             marks.append(time.perf_counter())
     launches = suppress.launches
+    uploads = staging.stats.as_dict()
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     steady_fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     per_frame = [len(d) for d in dets]
@@ -3070,6 +3085,7 @@ def main() -> int:
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     print(f"nms_suppress launches over the main path: {launches}", flush=True)
+    check_uploads("detect_frames", uploads)
     if len(dets) != BATCH * N_BATCHES:
         raise AssertionError(f"{len(dets)} frames out, {BATCH * N_BATCHES} in")
     if launches < N_BATCHES:
@@ -3150,6 +3166,7 @@ def main() -> int:
     suppress.launches = 0
     st.syncs = st.rounds = st.fill_steps = 0
     scan_kernel.reset()
+    staging.stats.reset()
     rows, outs, marks = [], [], []
     t = time.perf_counter()
     for r in vp_t.track_frames(iter(frames)):
@@ -3159,6 +3176,8 @@ def main() -> int:
         if len(rows) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_t = suppress.launches
+    uploads_t = staging.stats.as_dict()
+    check_uploads("track_frames", uploads_t)
     syncs = st.syncs
     tracker_launches_t = scan_kernel.launches
     rounds, fills = scan_kernel.counts(dev).values()
@@ -3245,6 +3264,7 @@ def main() -> int:
         "kernel_launches_per_batch_in_tracker": tracker_launches,
         "distinct_ids": n_ids,
         "id_switches": switches,
+        "uploads": uploads_t,
     }
     print(f"tracker per batch of {BATCH} (replay on the card): CUDA events "
           f"{tracking['tracker_ms_per_batch_cuda_events']} ms, host clock "

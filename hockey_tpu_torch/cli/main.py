@@ -18,7 +18,8 @@ its control flow (:120-215); TEAM_CLASSIFICATION is the default, as there.
 - `--save-state` writes the run state (core/session.py) every
   `--save-state-every` frames and at the end; `--resume` restores one and
   continues from its frame, without the team fit.
-- `--json-metrics` writes the per-stage timers and counters as JSON;
+- `--json-metrics` writes the per-stage timers and counters as JSON (on
+  CUDA also `uploads`, the staging counters of core/staging.py);
   `--profile` writes a torch.profiler Chrome trace (`trace.json`) of the
   run into a directory.
 """
@@ -123,6 +124,7 @@ def main(argv=None) -> int:
         VideoSinkWriter,
         process_video_with_display,
     )
+    from ..core import staging
     from ..utils.profiling import device_trace
     from ..video.io import VideoInfo
 
@@ -185,7 +187,11 @@ def main(argv=None) -> int:
                                            display=not args.headless,
                                            limit=args.limit_frames)
     print(f"Processed {n} frames.")
-    processor.timers.dump_json(args.json_metrics)
+    # on CUDA, how many batches were uploaded from page-locked staging
+    # and how many by the blocking copy (core/staging.py)
+    uploads = ({"uploads": staging.stats.as_dict()}
+               if processor.device.type == "cuda" else {})
+    processor.timers.dump_json(args.json_metrics, **uploads)
     if args.json_metrics:
         print(f"Metrics written to {args.json_metrics}")
     return 0

@@ -22,6 +22,7 @@ import torch
 
 from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
 from ..core.device import resolve_device
+from ..core.staging import upload
 from ..ops.crop_resize import crop_and_resize_mm
 from ..ops.letterbox import (letterbox_batch, letterbox_params,
                              letterbox_rect_batch, rect_letterbox_params,
@@ -295,8 +296,7 @@ class Detector:
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
         detector's device; with team features, (Detections, features
         (B, D, 4)); for a pose model, (Detections, keypoints (B, K, 3))."""
-        with annotate("upload"):
-            x = torch.as_tensor(frames).to(self.device)
+        x = upload(frames, self.device)
         with torch.inference_mode():
             return self.core(self.model, x)
 
@@ -326,8 +326,7 @@ class Detector:
                 pre_topk=c.nms_pre_topk, max_det=self.max_det,
                 dtype=self.dtype, with_team_features=self.with_team_features)
             self._track_step = DetectTrackStep(core, self.tracker_kwargs())
-        with annotate("upload"):
-            x = torch.as_tensor(frames).to(self.device)
+        x = upload(frames, self.device)
         with torch.inference_mode():
             return self._track_step(self.model, x, state)
 

@@ -28,6 +28,7 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
+from ..core.staging import upload
 from ..ops.letterbox import letterbox_batch
 from ..ops.nms import Detections
 from ..utils.profiling import annotate
@@ -149,8 +150,7 @@ class DualDetector:
     def run(self, frames):
         """The step on the device: (Detections, team features or None,
         keypoints (B, K, 3), packed), all on the detector's device."""
-        with annotate("upload"):
-            x = torch.as_tensor(frames).to(self.device)
+        x = upload(frames, self.device)
         with torch.inference_mode():
             return self.step(self.player_model, self.rink_model, x)
 

@@ -45,6 +45,10 @@ as the JAX package does; the numeric entry points draw nothing and give
 it the raw frame. PUCK_DETECTION ignores both options: the JAX package
 builds the rink detector in that mode and never runs it.
 
+On CUDA every frame batch (`_batches`, `detect_frames`, `fit_teams`) is
+stacked into page-locked memory (core/staging.py `stage`), from which the
+detect steps upload it without a host wait.
+
 Under a `torch.profiler` profile every `StageTimers` stage is a range of
 its name (`puck_track` is the puck tracker's), and inside `detect` the
 step's outputs cross to the host in a `fetch` range (the host's wait for
@@ -68,6 +72,7 @@ from .core.config import (
     ProcessingMode,
 )
 from .core.device import resolve_device
+from .core.staging import stage
 from .homography.calibrator import CalibratorState
 from .homography.keypoints import RinkKeypointDetector, keypoints_from_array
 from .models.detector import Detector, HostDetections
@@ -146,6 +151,10 @@ class VideoProcessor:
         self.device = resolve_device(device)
         self.frame_hw = frame_hw
         self.timers = StageTimers()
+        # on CUDA every frame batch is stacked into page-locked memory,
+        # which the detect steps upload without a host wait
+        # (core/staging.py)
+        self._stack = stage if self.device.type == "cuda" else np.stack
         self.last_frame_result = None  # set per frame in the tracking modes
         self.last_track_batch = None   # the fused step's last raw output
         teams = self.mode == ProcessingMode.TEAM_CLASSIFICATION
@@ -276,7 +285,7 @@ class VideoProcessor:
         """(batch (b, H, W, 3), true count) of the frames; with `prefetch`
         and b > 1 they are read and stacked on a background thread
         (hockey_tpu pipeline.py:406-470)."""
-        batches = batched(iter(frames), b)
+        batches = batched(iter(frames), b, self._stack)
         return prefetched(batches) if prefetch and b > 1 else batches
 
     def _steps(self, frames: Iterable[np.ndarray], prefetch: bool = False
@@ -323,7 +332,7 @@ class VideoProcessor:
         """Frames (H, W, 3) uint8 -> each frame's filtered detections, run
         in device batches of `config.resolved_frame_batch` (at most 32 on
         the dual step)."""
-        for batch, n in batched(iter(frames), self._batch()):
+        for batch, n in batched(iter(frames), self._batch(), self._stack):
             for det, _ in self._detect_batch(batch, n):
                 yield det
 
@@ -402,7 +411,7 @@ class VideoProcessor:
             iter(frames), 0,
             cfg.initialization_stride * (cfg.max_initialization_frames + 1),
             cfg.initialization_stride)
-        for batch, n in batched(sample, self._batch()):
+        for batch, n in batched(sample, self._batch(), self._stack):
             for frame, (det, _) in zip(batch, self._detect_batch(batch, n)):
                 pmask = det.classes == PLAYER_CLASS_ID
                 pboxes = det.boxes[pmask]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.config import Config
+from ..core.staging import upload
 from ..models.detector import Detector
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
@@ -99,8 +100,7 @@ class SlicedDetector:
         """(K, H, W, 3) uint8 frames -> (boxes (K, 4, 4), scores (K, 4),
         valid (K, 4)) on the host: one upload, the tiles cut on the device,
         one forward with per-tile NMS, one merge, one copy back."""
-        with annotate("upload"):
-            x = torch.as_tensor(frames).to(self.device)
+        x = upload(frames, self.device)
         with torch.inference_mode():
             with annotate("slice"):
                 tiles = self.tiles(x)

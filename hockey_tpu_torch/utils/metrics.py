@@ -56,7 +56,8 @@ class StageTimers:
             out["gauges"] = dict(self.gauges)
         return out
 
-    def dump_json(self, path: Optional[str]) -> None:
+    def dump_json(self, path: Optional[str], **extra) -> None:
+        """`summary()`, with the `extra` entries beside it, as JSON."""
         if path:
             with open(path, "w") as f:
-                json.dump(self.summary(), f, indent=2)
+                json.dump(dict(self.summary(), **extra), f, indent=2)

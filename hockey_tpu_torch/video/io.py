@@ -63,26 +63,27 @@ def frame_generator(path: str, stride: int = 1, start: int = 0,
         cap.release()
 
 
-def batched(frames: Iterator[np.ndarray], batch: int
+def batched(frames: Iterator[np.ndarray], batch: int, stack=np.stack
             ) -> Iterator[Tuple[np.ndarray, int]]:
     """Group frames into (B, H, W, 3) batches; the final batch is padded by
     repeating its last frame so device shapes stay static, and the second
-    element is the true frame count. Each stacking is a `stack` range; the
-    range closes before the batch is yielded, so it never times the
-    consumer."""
+    element is the true frame count. `stack` builds each batch from its
+    frames: `np.stack`, or `core/staging.py` `stage`, which writes it into
+    page-locked memory. Each stacking is a `stack` range; the range closes
+    before the batch is yielded, so it never times the consumer."""
     buf: List[np.ndarray] = []
     for frame in frames:
         buf.append(frame)
         if len(buf) == batch:
             with annotate("stack"):
-                out = np.stack(buf)
+                out = stack(buf)
             yield out, batch
             buf = []
     if buf:
         n = len(buf)
         buf.extend([buf[-1]] * (batch - n))
         with annotate("stack"):
-            out = np.stack(buf)
+            out = stack(buf)
         yield out, n
 
 

@@ -284,6 +284,8 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     Detector,
     HostDetections,
     best_keypoints,
+    fetch,
+    pack,
     team_features,
     tracker_inputs,
 )
@@ -1427,7 +1429,8 @@ def rink_phase(config, max_err):
                         show_2d_map=True, team_names=("TEAM_A", "TEAM_B"))
     dual = vp.player_detector
     print(f"dual step ready in {time.perf_counter() - t:.2f} s: player "
-          f"{dual.core.in_hw} {dual.dtype}, rink {dual.step.rink_imgsz} square, "
+          f"{dual.player.core.in_hw} {dual.player.dtype}, rink "
+          f"{dual.step.rink_imgsz} square, "
           f"tracker {type(vp.tracker).__name__}", flush=True)
     if not (vp.use_dual and isinstance(dual, DualDetector)
             and dual.with_team_features and not vp.use_fused_tracker
@@ -1436,15 +1439,15 @@ def rink_phase(config, max_err):
                              "the dual step and the host ByteTrack")
     crops = vp.fit_teams(iter(frames))
 
-    outs = []  # (the dual step's host output, keypoints) of each batch
-    detect_batch = dual.detect_batch
+    outs = []  # (the dual step's HostBatch, keypoints) of each batch
+    fetch_batch = dual.fetch_batch
 
     def recording(batch):
-        out = detect_batch(batch)
-        outs.append((out, dual.last_keypoints))
-        return out
+        host = fetch_batch(batch)
+        outs.append((host, dual.last_keypoints))
+        return host
 
-    dual.detect_batch = recording
+    dual.fetch_batch = recording
     track_inputs = []  # each frame's (boxes, scores, classes) for phase 15
     update = vp.tracker.update
 
@@ -1464,7 +1467,7 @@ def rink_phase(config, max_err):
         if len(results) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_d = suppress.launches
-    dual.detect_batch = detect_batch
+    dual.fetch_batch = fetch_batch
     vp.tracker.update = update
     fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
@@ -1490,7 +1493,7 @@ def rink_phase(config, max_err):
     for (out, kp) in outs:
         if kp.shape != (BATCH, 56, 3) or not np.isfinite(kp).all():
             raise AssertionError("rink keypoints not finite (B, 56, 3)")
-        if out[1].shape != (BATCH, dual.max_det, 4):
+        if out.feats.shape != (BATCH, dual.player.max_det, 4):
             raise AssertionError("no team features from the dual step")
     if not calibrated:
         raise AssertionError("the calibrator never produced a homography")
@@ -1500,9 +1503,9 @@ def rink_phase(config, max_err):
     # the kernel at the player branch on the last batch: the plain
     # suppression's kept set, and the halves give the run's detections
     last = torch.as_tensor(frames[-BATCH:]).to("cuda")
-    core = dual.core
+    core = dual.player.core
     with torch.inference_mode():
-        cand = core.candidates(dual.player_model, last)
+        cand = core.candidates(dual.player.model, last)
         keep_k = suppress(cand.matrix, cand.keep0, cand.thr)
         keep_r = suppress_reference(cand.matrix, cand.keep0, cand.thr)
         again = core.finish(cand, keep_k)
@@ -1510,8 +1513,8 @@ def rink_phase(config, max_err):
     max_err = max(max_err, float((keep_k.int() - keep_r.int()).abs().max()))
     if not torch.equal(keep_k, keep_r):
         raise AssertionError("dual-path kept sets differ from the plain version")
-    run_det = outs[-1][0][0]
-    if not all(torch.equal(getattr(again, f).cpu(), getattr(run_det, f))
+    run_det = outs[-1][0]
+    if not all(np.array_equal(getattr(again, f).cpu().numpy(), getattr(run_det, f))
                for f in ("boxes", "scores", "classes", "valid")):
         raise AssertionError("the dual core's halves differ from the run's "
                              "last batch")
@@ -3004,7 +3007,7 @@ def mesh_phase(config, det, frames, max_err):
     out = {"train_1x1": train, "detect_dp_bit_equal": same,
            "detect_dp_launches": launches}
     if torch.cuda.device_count() >= 2:
-        dets8 = [HostDetections.from_padded(ref, i) for i in range(BATCH)]
+        dets8 = [d for d, _, _ in fetch(pack(ref)).rows()]
         torch.cuda.empty_cache()  # rank 0 shares this process's card
         out["multi_card"] = multi_card(batches, want, want_tree, frames8, dets8)
     else:
@@ -3119,8 +3122,9 @@ def main() -> int:
           f"kept set: {same}", flush=True)
     if not same:
         raise AssertionError("main-path kept sets differ from the plain version")
+    again = fetch(pack(again))
     for i, d in enumerate(dets[-BATCH:]):
-        h_again = vp._filter(HostDetections.from_padded(again, i))
+        h_again = vp._filter(again.frame(i)[0])
         if not all(np.array_equal(x, y) for x, y in zip(h_again, d)):
             raise AssertionError(f"the halves differ from the main path, frame {i}")
     print("candidates + kernel + finish == detect_frames on the last batch: True",

@@ -25,6 +25,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def compute_dtype(device: torch.device, dtype=None) -> torch.dtype:
+    """The served models' compute type: `dtype` if given, else bf16 on
+    CUDA and f32 on the CPU."""
+    return dtype or (torch.bfloat16 if device.type == "cuda" else torch.float32)
+
+
 # (key, device, dtype) -> the constant tensor built for it; see
 # `device_constant`
 CONSTANTS: Dict[Tuple, torch.Tensor] = {}

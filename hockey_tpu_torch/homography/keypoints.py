@@ -88,9 +88,8 @@ class RinkKeypointDetector:
 
     def detect_keypoints_batch(self, frames: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) -> (B, 56, 3) raw keypoints on the host: x, y in
-        frame px and the confidence."""
-        _, kpts = self.detector.detect_batch(frames)
-        return kpts.cpu().numpy()
+        frame px and the confidence (the step's per-frame block)."""
+        return self.detector.fetch_batch(frames).block
 
     # ------------------------------------------------------------------
     @staticmethod

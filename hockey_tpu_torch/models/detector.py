@@ -6,22 +6,28 @@ hockey_tpu/models/detector.py (`HostDetections`, `_unmap_boxes`,
 `team_features`, `build_detect_track_fn` as `DetectTrackStep`,
 `BYTE_FLOOR`, `Detector`).
 
-The frames cross to the device once per batch and the fixed-size padded
-detections (or, fused, the packed detections, track ids and team
-features) come back once; the step's constant matrices and anchors are
-built on the device once (`core.device.device_constant`). NMS suppression runs
-in the CUDA kernel of ops/nms_kernel.py on a CUDA device.
+The frames cross to the device once per batch (`core.staging.upload`);
+the step's constant matrices and anchors are built on the device once
+(`core.device.device_constant`). NMS suppression runs in the CUDA kernel
+of ops/nms_kernel.py on a CUDA device.
+
+Every detect step's result reaches the host through one handoff: `pack`
+lays it out on the device as one f32 tensor (a row [x1 y1 x2 y2 | score |
+class | id | per-slot features] per detection slot, then the per-frame
+block's rows; the layout is documented there), `fetch` copies it once
+into a `HostBatch`. `served_model` builds every served model.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.config import GOALKEEPER_CLASS_ID, PLAYER_CLASS_ID, Config
-from ..core.device import resolve_device
+from ..core.device import compute_dtype, resolve_device
 from ..core.staging import upload
 from ..ops.crop_resize import crop_and_resize_mm
 from ..ops.letterbox import (letterbox_batch, letterbox_params,
@@ -57,14 +63,74 @@ class HostDetections(NamedTuple):
     def __len__(self) -> int:
         return len(self.boxes)
 
-    @staticmethod
-    def from_padded(det: Detections, i: int) -> "HostDetections":
-        valid = det.valid[i].cpu().numpy()
-        return HostDetections(
-            boxes=det.boxes[i].cpu().numpy()[valid],
-            scores=det.scores[i].cpu().numpy()[valid],
-            classes=det.classes[i].cpu().numpy()[valid],
-        )
+
+def pack(det: Detections, ids: Optional[torch.Tensor] = None,
+         feats: Optional[torch.Tensor] = None,
+         block: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A detect step's batch as one f32 tensor (B, D + K, C), in a `pack`
+    range, for `fetch`'s one copy. Rows 0..D-1, one per detection slot:
+    [x1 y1 x2 y2 | score | class | id | feats (B, D, F), per-slot], C =
+    7 + F; `id` is `ids` (the fused step's track ids, -1 where no
+    emittable track holds the slot), else 0 on a valid slot and -1 on an
+    empty one, and the host keeps the rows with id >= 0. Rows D.., with
+    `block` (B, K, W <= C) (keypoints, W = 3): its rows, zero-padded.
+    Ints and flags are exact in f32 below 2**24: host rows are bit-equal."""
+    with annotate("pack"):
+        if ids is None:
+            ids = torch.where(det.valid, 0, -1)
+        cols = [det.boxes, det.scores[..., None], det.classes[..., None],
+                ids[..., None]]
+        if feats is not None:
+            cols.append(feats)
+        rows = torch.cat([c.float() for c in cols], dim=-1)
+        if block is None:
+            return rows
+        pad = (0, rows.shape[-1] - block.shape[-1])
+        return torch.cat([rows, F.pad(block.float(), pad)], dim=1)
+
+
+class HostBatch(NamedTuple):
+    """`pack`'s tensor on the host (`fetch`): padded (B, D) per-slot
+    arrays and the per-frame block."""
+
+    boxes: np.ndarray            # (B, D, 4) xyxy float32
+    scores: np.ndarray           # (B, D)
+    classes: np.ndarray          # (B, D) int32
+    ids: np.ndarray              # (B, D) int32; -1 on a slot the host drops
+    feats: Optional[np.ndarray]  # (B, D, F) per-slot features, or None
+    block: Optional[np.ndarray]  # (B, ...) per-frame block, or None
+
+    @property
+    def valid(self) -> np.ndarray:
+        return self.ids >= 0
+
+    def frame(self, i: int) -> Tuple:
+        """Frame i's kept rows: (detections, ids (k,), features (k, F) or
+        None)."""
+        v = self.ids[i] >= 0
+        return (HostDetections(self.boxes[i][v], self.scores[i][v],
+                               self.classes[i][v]),
+                self.ids[i][v], None if self.feats is None else self.feats[i][v])
+
+    def rows(self) -> List[Tuple]:
+        """`frame` of every frame, in an `unpack` range."""
+        with annotate("unpack"):
+            return [self.frame(i) for i in range(len(self.ids))]
+
+
+def fetch(packed: torch.Tensor,
+          block_shape: Optional[Tuple[int, int]] = None) -> HostBatch:
+    """`pack`'s tensor -> HostBatch: the batch's one copy to the host, in a
+    `fetch` range (the host's wait for the step); `block_shape` (K, W) of
+    the per-frame block, if any."""
+    with annotate("fetch"):
+        arr = packed.cpu().numpy()
+    k, w = block_shape or (0, 0)
+    s = arr[:, :arr.shape[1] - k]
+    return HostBatch(s[..., :4], s[..., 4], s[..., 5].astype(np.int32),
+                     s[..., 6].astype(np.int32),
+                     s[..., 7:] if s.shape[-1] > 7 else None,
+                     arr[:, s.shape[1]:, :w] if k else None)
 
 
 def letterbox_geometry(h: int, w: int, imgsz: int, rect: bool
@@ -200,6 +266,15 @@ class DetectCore:
                     geometry)
         return det
 
+    def to_host(self, out) -> HostBatch:
+        """This core's result on the host (`pack`, `fetch`): team features
+        as per-slot columns, keypoints as the per-frame block."""
+        if self.with_team_features:
+            return fetch(pack(out[0], feats=out[1]))
+        if self.with_keypoints:
+            return fetch(pack(out[0], block=out[1]), tuple(out[1].shape[1:]))
+        return fetch(pack(out))
+
 
 def tracker_inputs(det: Detections):
     """(boxes, scores, classes, valid) that the fused step gives the
@@ -215,8 +290,8 @@ class DetectTrackStep:
     frames on the device, on `tracker_inputs`. (model, frames, TrackState)
     -> (Detections, team features (B, D, 4) or None, det_track_ids (B, D)
     int32, packed (B, D, 7 or 11) f32, new TrackState); `packed` is
-    [boxes | score | class | track_id | features], so the host needs one
-    device-to-host copy per batch."""
+    `pack`'s layout with the track ids as the id column, so the host needs
+    one device-to-host copy per batch."""
 
     def __init__(self, core: DetectCore, tracker_kwargs: Dict):
         self.core, self.tracker_kwargs = core, tracker_kwargs
@@ -227,23 +302,29 @@ class DetectTrackStep:
         with annotate("tracker_scan"):
             state2, tids = tracker_scan(state, *tracker_inputs(det),
                                         **self.tracker_kwargs)
-        with annotate("pack"):
-            cols = [det.boxes, det.scores[..., None],
-                    det.classes.float()[..., None], tids.float()[..., None]]
-            if feats is not None:
-                cols.append(feats)
-            packed = torch.cat(cols, dim=-1)
-        return det, feats, tids, packed, state2
+        return det, feats, tids, pack(det, ids=tids, feats=feats), state2
+
+
+def served_model(name: str, checkpoint: Optional[str], device: torch.device,
+                 dtype: torch.dtype, fuse: bool = True) -> YOLOv8:
+    """The model `name` for serving: weights from `checkpoint`, else the
+    JAX package's shipped ones; BN folded into `dtype` with `fuse`, else
+    cast to it; channels_last on `device`."""
+    path = checkpoint or shipped_weights_path(name)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint for {name!r}")
+    model = build_model(MODEL_ZOO[name], load_params(path))
+    model = fuse_for_inference(model, dtype) if fuse else model.to(dtype)
+    return model.to(device, memory_format=torch.channels_last)
 
 
 class Detector:
     """Host-facing detector: owns the model and the detect step.
 
-    Weights: `checkpoint` if given, else the JAX package's shipped
-    checkpoint for `model_name`. `fuse` folds BN; the model runs in
-    `dtype` (bf16 on CUDA, f32 on the CPU by default). With
-    `with_team_features` both steps also return each box slot's 4-dim team
-    feature (`team_features`); a pose model (`hockey-detection`)'s
+    The model is `served_model(model_name, checkpoint, ..., fuse)` in
+    `dtype` (`compute_dtype`: bf16 on CUDA, f32 on the CPU by default).
+    With `with_team_features` both steps also return each box slot's 4-dim
+    team feature (`team_features`); a pose model (`hockey-detection`)'s
     `detect_batch` also returns its best anchor's keypoints."""
 
     def __init__(
@@ -263,42 +344,42 @@ class Detector:
     ):
         self.with_team_features = with_team_features
         self.device = resolve_device(device)
-        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda"
-                               else torch.float32)
+        self.dtype = compute_dtype(self.device, dtype)
         self.config = config or Config()
         self.cfg = MODEL_ZOO[model_name]
         self.imgsz = imgsz or self.config.detection_imgsz
         self.conf = conf if conf is not None else self.config.detection_confidence
         self.frame_hw = frame_hw
         self.max_det = max_det or self.config.max_detections
-        path = checkpoint or shipped_weights_path(model_name)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoint for {model_name!r}")
-        model = build_model(self.cfg, load_params(path))
-        model = fuse_for_inference(model, self.dtype) if fuse else model.to(self.dtype)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
-        self.core = DetectCore(
-            self.cfg,
-            imgsz=self.imgsz,
-            frame_hw=frame_hw,
-            conf=self.conf,
-            iou=self.config.nms_iou_threshold,
-            containment=self.config.nms_containment_threshold,
-            pre_topk=self.config.nms_pre_topk,
-            max_det=self.max_det,
-            dtype=self.dtype,
-            with_team_features=with_team_features,
-            with_keypoints=self.cfg.num_keypoints > 0,
-        )
+        self.model = served_model(model_name, checkpoint, self.device,
+                                  self.dtype, fuse)
+        self.core = self._core(self.conf, with_team_features=with_team_features,
+                               with_keypoints=self.cfg.num_keypoints > 0)
         self._track_step: Optional[DetectTrackStep] = None  # built lazily
+
+    def _core(self, conf: float, **flags) -> DetectCore:
+        """A DetectCore of this detector's sizes, dtype and Config at `conf`."""
+        c = self.config
+        return DetectCore(
+            self.cfg, imgsz=self.imgsz, frame_hw=self.frame_hw, conf=conf,
+            iou=c.nms_iou_threshold, containment=c.nms_containment_threshold,
+            pre_topk=c.nms_pre_topk, max_det=self.max_det, dtype=self.dtype,
+            **flags)
+
+    def step(self, x: torch.Tensor):
+        """The core's result on frames (B, H, W, 3) uint8 on the device."""
+        with torch.inference_mode():
+            return self.core(self.model, x)
 
     def detect_batch(self, frames):
         """(B, H, W, 3) uint8 (numpy or tensor) -> padded Detections on the
         detector's device; with team features, (Detections, features
         (B, D, 4)); for a pose model, (Detections, keypoints (B, K, 3))."""
-        x = upload(frames, self.device)
-        with torch.inference_mode():
-            return self.core(self.model, x)
+        return self.step(upload(frames, self.device))
+
+    def fetch_batch(self, frames) -> HostBatch:
+        """`detect_batch`'s result on the host in one copy (`to_host`)."""
+        return self.core.to_host(self.detect_batch(frames))
 
     def tracker_kwargs(self) -> Dict:
         """The fused tracker's settings (hockey_tpu detector.py:316-327):
@@ -318,13 +399,8 @@ class Detector:
         reference's effective threshold max(activation, conf)
         (hockey_tpu detector.py:301-315)."""
         if self._track_step is None:
-            c = self.config
-            core = DetectCore(
-                self.cfg, imgsz=self.imgsz, frame_hw=self.frame_hw,
-                conf=min(self.conf, BYTE_FLOOR), iou=c.nms_iou_threshold,
-                containment=c.nms_containment_threshold,
-                pre_topk=c.nms_pre_topk, max_det=self.max_det,
-                dtype=self.dtype, with_team_features=self.with_team_features)
+            core = self._core(min(self.conf, BYTE_FLOOR),
+                              with_team_features=self.with_team_features)
             self._track_step = DetectTrackStep(core, self.tracker_kwargs())
         x = upload(frames, self.device)
         with torch.inference_mode():
@@ -333,6 +409,4 @@ class Detector:
     def detect(self, frame: np.ndarray) -> HostDetections:
         """Single frame -> host-side unpadded detections (team features or
         keypoints, if any, are dropped)."""
-        out = self.detect_batch(frame[None])
-        return HostDetections.from_padded(
-            out if isinstance(out, Detections) else out[0], 0)
+        return self.fetch_batch(frame[None]).frame(0)[0]

@@ -13,8 +13,10 @@ pipeline runs this step instead of the player `Detector`'s:
   (the pose checkpoint's training resolution), runs the YOLOv8s-pose
   model and un-maps the best anchor's 56 keypoints; it runs no NMS.
 
-The branches' results are packed into one (B, D * C + 3K) f32 tensor, so
-the host gets them in one copy per batch. The step has no tracker: the
+The results go to the host in one copy per batch through the detect
+steps' one handoff (models/detector.py `pack`, `fetch`): a row [x1 y1 x2
+y2 | score | class | id | team features] per slot, then the 56
+keypoints' rows. The step has no tracker: the
 JAX package has no dual program with one, and the pipeline's tracking
 modes run the host ByteTrack after it.
 """
@@ -27,28 +29,20 @@ import numpy as np
 import torch
 
 from ..core.config import Config
-from ..core.device import resolve_device
 from ..core.staging import upload
 from ..ops.letterbox import letterbox_batch
-from ..ops.nms import Detections
 from ..utils.profiling import annotate
-from .checkpoint import load_params, shipped_weights_path
-from .detector import (DetectCore, HostDetections, best_keypoints,
-                       letterbox_geometry)
-from .layers import fuse_for_inference
-from .yolov8 import (MODEL_ZOO, YOLOv8, YoloConfig, build_model, decode_boxes,
+from .detector import (DetectCore, Detector, HostBatch, best_keypoints,
+                       fetch, letterbox_geometry, pack, served_model)
+from .yolov8 import (MODEL_ZOO, YOLOv8, YoloConfig, decode_boxes,
                      decode_keypoints, forward_raw)
-
-# the packed row of one detection slot: [x1 y1 x2 y2 | score | class |
-# valid | team features (4), with the team branch]
-DET_COLS = 7
 
 
 class DualStep:
     """(player model, rink model, frames (B, H, W, 3) uint8 on the device)
     -> (Detections, team features (B, D, 4) or None, keypoints (B, K, 3) in
-    frame px, packed (B, D * C + 3K) f32) (hockey_tpu dual.py:37-115).
-    Each rink stage is an `annotate` range: rink_letterbox,
+    frame px, `pack`ed with the keypoints as the block) (hockey_tpu
+    dual.py:37-115). Each rink stage is an `annotate` range: rink_letterbox,
     rink_forward, rink_decode; the player branch keeps the detect step's
     ranges, and `pack` is the last."""
 
@@ -78,40 +72,16 @@ class DualStep:
         out = self.core(player_model, frames)
         det, feats = out if self.core.with_team_features else (out, None)
         kpts = self.rink_keypoints(rink_model, frames)
-        with annotate("pack"):
-            cols = [det.boxes, det.scores[..., None],
-                    det.classes.float()[..., None], det.valid.float()[..., None]]
-            if feats is not None:
-                cols.append(feats)
-            b = frames.shape[0]
-            packed = torch.cat([torch.cat(cols, dim=-1).reshape(b, -1),
-                                kpts.reshape(b, -1)], dim=1)
-        return det, feats, kpts, packed
-
-
-def unpack_dual(packed: np.ndarray, max_det: int, num_keypoints: int):
-    """The host's copy of `DualStep`'s packed (B, D * C + 3K) -> (Detections
-    of CPU tensors, team features (B, D, 4) or None, keypoints (B, K, 3))."""
-    b = packed.shape[0]
-    rows = packed[:, :packed.shape[1] - 3 * num_keypoints].reshape(b, max_det, -1)
-    kpts = packed[:, rows.shape[1] * rows.shape[2]:].reshape(b, num_keypoints, 3)
-    det = Detections(torch.from_numpy(rows[..., :4].copy()),
-                     torch.from_numpy(rows[..., 4].copy()),
-                     torch.from_numpy(rows[..., 5].astype(np.int32)),
-                     torch.from_numpy(rows[..., 6] > 0))
-    feats = rows[..., DET_COLS:] if rows.shape[2] > DET_COLS else None
-    return det, feats, kpts
+        return det, feats, kpts, pack(det, feats=feats, block=kpts)
 
 
 class DualDetector:
     """Player detection and rink keypoints in one step per batch; the
-    player `Detector`'s `detect_batch` / `detect` contract plus
-    `last_keypoints` (hockey_tpu dual.py:118-175).
-
-    Weights: `checkpoint` / `rink_checkpoint` if given, else the shipped
-    checkpoints of `config.player_model_name` and
-    `config.hockey_model_name`; BN folded, cast to `dtype` (bf16 on CUDA,
-    f32 on the CPU by default)."""
+    player `Detector`'s `detect_batch` / `fetch_batch` / `detect` contract
+    plus `last_keypoints` (hockey_tpu dual.py:118-175). `player` is the
+    `Detector` of `config.player_model_name` (`checkpoint`) whose core is
+    the player branch; the rink model, `config.hockey_model_name`'s
+    (`rink_checkpoint`), is built by `served_model` in the same dtype."""
 
     def __init__(self, config: Optional[Config] = None,
                  frame_hw: Tuple[int, int] = (1080, 1920),
@@ -120,54 +90,36 @@ class DualDetector:
                  with_team_features: bool = True, device="cuda",
                  dtype: Optional[torch.dtype] = None):
         self.config = c = config or Config()
-        self.device = resolve_device(device)
-        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda"
-                               else torch.float32)
-        self.player_cfg = MODEL_ZOO[c.player_model_name]
-        self.rink_cfg = MODEL_ZOO[c.hockey_model_name]
         self.with_team_features = with_team_features
-        self.max_det = c.max_detections
-        self.player_model = self._model(self.player_cfg, c.player_model_name,
-                                        checkpoint)
-        self.rink_model = self._model(self.rink_cfg, c.hockey_model_name,
-                                      rink_checkpoint)
-        self.core = DetectCore(
-            self.player_cfg, imgsz=c.detection_imgsz, frame_hw=frame_hw,
-            conf=c.detection_confidence, iou=c.nms_iou_threshold,
-            containment=c.nms_containment_threshold, pre_topk=c.nms_pre_topk,
-            max_det=self.max_det, dtype=self.dtype,
-            with_team_features=with_team_features)
-        self.step = DualStep(self.core, self.rink_cfg, c.rink_imgsz)
+        self.player = Detector(c.player_model_name, c, frame_hw=frame_hw,
+                               checkpoint=checkpoint, device=device,
+                               dtype=dtype,
+                               with_team_features=with_team_features)
+        self.rink_cfg = MODEL_ZOO[c.hockey_model_name]
+        self.rink_model = served_model(c.hockey_model_name, rink_checkpoint,
+                                       self.player.device, self.player.dtype)
+        self.step = DualStep(self.player.core, self.rink_cfg, c.rink_imgsz)
         self.last_keypoints: Optional[np.ndarray] = None
-
-    def _model(self, cfg: YoloConfig, name: str, checkpoint: Optional[str]):
-        path = checkpoint or shipped_weights_path(name)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoint for {name!r}")
-        model = fuse_for_inference(build_model(cfg, load_params(path)), self.dtype)
-        return model.to(self.device, memory_format=torch.channels_last)
 
     def run(self, frames):
         """The step on the device: (Detections, team features or None,
         keypoints (B, K, 3), packed), all on the detector's device."""
-        x = upload(frames, self.device)
+        x = upload(frames, self.player.device)
         with torch.inference_mode():
-            return self.step(self.player_model, self.rink_model, x)
+            return self.step(self.player.model, self.rink_model, x)
 
     def detect_batch(self, frames):
-        """(B, H, W, 3) uint8 -> padded Detections on the host (CPU
-        tensors), with team features (Detections, features (B, D, 4)); the
-        batch's keypoints (B, K, 3) go to `last_keypoints`. One copy from
-        the device per batch."""
-        packed = self.run(frames)[3].cpu().numpy()
-        det, feats, self.last_keypoints = unpack_dual(
-            packed, self.max_det, self.rink_cfg.num_keypoints)
-        return (det, torch.from_numpy(feats.copy())) if self.with_team_features \
-            else det
+        """(B, H, W, 3) uint8 -> padded Detections on the detector's
+        device, with team features (Detections, features (B, D, 4)), as
+        `Detector.detect_batch`; the keypoints stay on the device."""
+        det, feats = self.run(frames)[:2]
+        return det if feats is None else (det, feats)
 
-    def detect(self, frame: np.ndarray) -> HostDetections:
-        """Single frame -> host-side unpadded detections; its keypoints go
-        to `last_keypoints` (1, K, 3)."""
-        out = self.detect_batch(frame[None])
-        return HostDetections.from_padded(
-            out if isinstance(out, Detections) else out[0], 0)
+    def fetch_batch(self, frames) -> HostBatch:
+        """The step's packed result on the host in one copy (`fetch`); the
+        batch's keypoints (B, K, 3) go to `last_keypoints`."""
+        host = fetch(self.run(frames)[3], (self.rink_cfg.num_keypoints, 3))
+        self.last_keypoints = host.block
+        return host
+
+    detect = Detector.detect  # by this `fetch_batch`, so it sets last_keypoints

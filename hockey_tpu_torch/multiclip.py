@@ -1,7 +1,7 @@
 """Multi-clip batch processing: port of hockey_tpu/multiclip.py.
 
 K clips run in lockstep: each frame row (frame t of every clip) is one
-`detect_batch` of B = K frames through ONE shared `Detector`, so one card
+`fetch_batch` of B = K frames through ONE shared `Detector`, so one card
 serves many games with one set of weights and one batch per step. A clip
 that has ended repeats its last frame to keep the batch's shape. Each clip
 has its own VideoProcessor (sharing the detector) for tracking, teams and
@@ -27,7 +27,6 @@ import numpy as np
 from .core.config import Config, ProcessingMode
 from .core.device import resolve_device
 from .models.detector import Detector, HostDetections
-from .ops.nms import Detections
 from .pipeline import VideoProcessor
 from .video.io import VideoInfo, VideoSink, frame_generator
 
@@ -77,8 +76,9 @@ class MultiClipProcessor:
                   limit_frames: Optional[int], counts: List[int]
                   ) -> Iterator[Tuple[int, np.ndarray, HostDetections]]:
         """(clip, frame, its filtered detections), row by row: one
-        detect_batch over the K clips' next frames per row; `counts` holds
-        the frames yielded per clip."""
+        `fetch_batch` (detection and one copy to the host) over the K
+        clips' next frames per row; `counts` holds the frames yielded per
+        clip."""
         if len(clips) != self.n_clips:
             raise ValueError(f"{len(clips)} clips for {self.n_clips} processors")
         gens = [iter(c) for c in clips]
@@ -102,15 +102,13 @@ class MultiClipProcessor:
                         frames[i] = nxt
             if not any(live):
                 return
-            out = self.detector.detect_batch(np.stack(frames))
-            det = Detections(*(t.cpu() for t in
-                               (out if isinstance(out, Detections) else out[0])))
+            host = self.detector.fetch_batch(np.stack(frames))
             for i, p in enumerate(self.processors):
                 if not live[i] or (limit_frames is not None
                                    and counts[i] >= limit_frames):
                     continue
                 counts[i] += 1
-                yield i, frames[i], p._filter(HostDetections.from_padded(det, i))
+                yield i, frames[i], p._filter(host.frame(i)[0])
 
     def run(self, targets: Optional[Sequence[Optional[str]]] = None,
             limit_frames: Optional[int] = None) -> List[int]:

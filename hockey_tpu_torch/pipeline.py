@@ -49,10 +49,16 @@ On CUDA every frame batch (`_batches`, `detect_frames`, `fit_teams`) is
 stacked into page-locked memory (core/staging.py `stage`), from which the
 detect steps upload it without a host wait.
 
+Every route's step reaches the host through one handoff
+(models/detector.py `pack`, `fetch`): one f32 tensor, a row [x1 y1 x2 y2 |
+score | class | id | team features] per slot (id: the fused step's track
+id, else 0; -1 on a slot the host drops), then the dual step's keypoints;
+one copy a batch (the detector's `fetch_batch`, `unpack_tracked`).
+
 Under a `torch.profiler` profile every `StageTimers` stage is a range of
-its name (`puck_track` is the puck tracker's), and inside `detect` the
-step's outputs cross to the host in a `fetch` range (the host's wait for
-the step) and become host rows in an `unpack` range.
+its name (`puck_track` is the puck tracker's), and inside `detect` that
+copy is a `fetch` range (the host's wait for the step) and its split into
+per-frame rows (`HostBatch.rows`) an `unpack` range.
 """
 
 from __future__ import annotations
@@ -75,10 +81,9 @@ from .core.device import resolve_device
 from .core.staging import stage
 from .homography.calibrator import CalibratorState
 from .homography.keypoints import RinkKeypointDetector, keypoints_from_array
-from .models.detector import Detector, HostDetections
+from .models.detector import Detector, HostDetections, fetch
 from .models.dual import DualDetector
 from .ocr.jersey import JerseyNumberReader
-from .ops.nms import Detections
 from .rinkmap.renderer import RinkRenderer, bottom_center_anchors
 from .slicing.sahi import PuckPipeline
 from .teams.base import host_crops
@@ -87,7 +92,6 @@ from .tracking.bytetrack import ByteTrack
 from .tracking.device_tracker import DeviceByteTrack
 from .ui.team_selector import InteractiveTeamSelector
 from .utils.metrics import StageTimers
-from .utils.profiling import annotate
 from .video.io import VideoInfo, VideoSink, batched, frame_generator, prefetched
 
 _TRACKING_MODES = (ProcessingMode.PLAYER_TRACKING,
@@ -235,10 +239,6 @@ class VideoProcessor:
         b = self.config.resolved_frame_batch(self.device)
         return min(b, DUAL_MAX_BATCH) if self.use_dual else b
 
-    @property
-    def _fused_features(self) -> bool:
-        return bool(getattr(self.player_detector, "with_team_features", False))
-
     def _keep(self, det: HostDetections) -> np.ndarray:
         """{player, goalkeeper} above detection_confidence (reference
         main.py:177-195)."""
@@ -252,20 +252,12 @@ class VideoProcessor:
     def _detect_batch(self, frames: np.ndarray, n: int
                       ) -> List[Tuple[HostDetections, Optional[np.ndarray]]]:
         """Each of the batch's n frames' filtered detections and, where the
-        detector computes them, their team features (k, 4)."""
+        detector computes them, their team features (k, 4), through the
+        detector's one copy to the host (`fetch_batch`)."""
         with self.timers.stage("detect"):
-            out = self.player_detector.detect_batch(frames)
-            det, feats = out if self._fused_features else (out, None)
-            with annotate("fetch"):
-                det = Detections(*(t.cpu() for t in det))
-                feats = None if feats is None else feats.cpu().numpy()
-            with annotate("unpack"):
-                rows = []
-                for i in range(n):
-                    d = HostDetections.from_padded(det, i)
-                    tf = None if feats is None else \
-                        feats[i][det.valid[i].numpy()][self._keep(d)]
-                    rows.append((self._filter(d), tf))
+            host = self.player_detector.fetch_batch(frames)
+            rows = [(self._filter(d), None if tf is None else tf[self._keep(d)])
+                    for d, _, tf in host.rows()[:n]]
         for d, _ in rows:
             self.timers.count("detections", len(d))
         return rows
@@ -618,20 +610,11 @@ class VideoProcessor:
 
 def unpack_tracked(out) -> List[Tuple]:
     """The fused step's output -> per-frame host rows (boxes, scores,
-    classes, tids, team features (k, 4) or None), keeping only detections
-    that acquired an emittable track id, from the one `packed` tensor: one
-    device-to-host copy per batch (hockey_tpu pipeline.py:476-491; the
-    port's fused step always packs)."""
-    with annotate("fetch"):
-        arr = out[3].cpu().numpy()
-    with annotate("unpack"):
-        rows = []
-        for i in range(arr.shape[0]):
-            r = arr[i][arr[i, :, 6] >= 0]
-            rows.append((r[:, :4], r[:, 4], r[:, 5].astype(np.int32),
-                         r[:, 6].astype(np.int32),
-                         r[:, 7:] if arr.shape[-1] > 7 else None))
-    return rows
+    classes, tids, team features (k, 4) or None) of the detections that
+    acquired an emittable track id, from its `packed` tensor in one copy
+    (`fetch`) (hockey_tpu pipeline.py:476-491)."""
+    return [(d.boxes, d.scores, d.classes, tids, tf)
+            for d, tids, tf in fetch(out[3]).rows()]
 
 
 def process_video_with_display(processor: VideoProcessor, source_path: str,

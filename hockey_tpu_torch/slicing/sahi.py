@@ -22,7 +22,7 @@ import torch
 
 from ..core.config import Config
 from ..core.staging import upload
-from ..models.detector import Detector
+from ..models.detector import Detector, fetch, pack
 from ..ops.nms import Candidates, Detections, nms_candidates, nms_select
 from ..ops.nms_kernel import suppress
 from ..utils.profiling import annotate
@@ -99,19 +99,18 @@ class SlicedDetector:
     def detect_frames(self, frames) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(K, H, W, 3) uint8 frames -> (boxes (K, 4, 4), scores (K, 4),
         valid (K, 4)) on the host: one upload, the tiles cut on the device,
-        one forward with per-tile NMS, one merge, one copy back."""
+        one forward with per-tile NMS (the tile `Detector`'s step), one
+        merge, one copy back (`pack`, `fetch`)."""
         x = upload(frames, self.device)
         with torch.inference_mode():
             with annotate("slice"):
                 tiles = self.tiles(x)
-            det = self.detector.core(self.detector.model, tiles)
+            det = self.detector.step(tiles)
             with annotate("merge"):
                 m = self.merge(det)
-            packed = torch.cat([m.boxes, m.scores[..., None],
-                                m.valid.float()[..., None]], dim=-1)
-        with annotate("fetch"):
-            packed = packed.cpu().numpy()
-        return packed[..., :4], packed[..., 4], packed[..., 5] > 0
+            packed = pack(m)
+        host = fetch(packed)
+        return host.boxes, host.scores, host.valid
 
     def detect(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(H, W, 3) -> (boxes (n, 4), scores (n,)) in frame pixels."""
@@ -346,16 +345,9 @@ class PuckPipeline:
                 device=self.sliced.device, dtype=dtype)
 
     def detect_frame(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """One frame's puck boxes and (demoted) scores."""
-        boxes, scores = self.sliced.detect(frame)
-        if self.player_detector is not None:
-            det = self.player_detector.detect(frame)
-            scores = demote_in_player_boxes(
-                boxes[None], scores[None], det.boxes[None],
-                np.ones((1, len(det.boxes)), bool),
-                self.config.puck_player_demote,
-                self.config.puck_demote_foot_band)[0]
-        return boxes, scores
+        """One frame's puck boxes and (demoted) scores (`detect_batch`)."""
+        boxes, scores, valid = self.detect_batch(frame[None])
+        return boxes[0][valid[0]], scores[0][valid[0]]
 
     def process_frame(self, frame: np.ndarray) -> np.ndarray:
         return self.annotate(frame, *self.detect_frame(frame))
@@ -375,9 +367,9 @@ class PuckPipeline:
         detector's boxes where that is on."""
         boxes, scores, valid = self.sliced.detect_frames(frames)
         if self.player_detector is not None:
-            det = self.player_detector.detect_batch(frames)
+            det = self.player_detector.fetch_batch(frames)
             scores = demote_in_player_boxes(
-                boxes, scores, det.boxes.cpu().numpy(), det.valid.cpu().numpy(),
+                boxes, scores, det.boxes, det.valid,
                 self.config.puck_player_demote,
                 self.config.puck_demote_foot_band)
         return boxes, scores, valid

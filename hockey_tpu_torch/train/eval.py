@@ -196,12 +196,6 @@ def padded_batches(dataset, indices: Sequence[int], batch: int):
         yield items, imgs
 
 
-def host_detections(det) -> Tuple[np.ndarray, ...]:
-    """(valid, boxes, scores, classes) of padded Detections as numpy."""
-    return tuple(t.cpu().numpy()
-                 for t in (det.valid, det.boxes, det.scores, det.classes))
-
-
 def evaluate_detector(
     detector,
     dataset,
@@ -212,11 +206,10 @@ def evaluate_detector(
     """Run a `Detector` (models/detector.py) over dataset items and compute
     the metrics. `dataset` yields dicts with 'images' (S, S, 3) f32 [0, 1]
     and padded ground truth; a detection counts if it is valid and scores
-    at least `conf`. Batches of `batch` images, the tail padded."""
-    from ..ops.nms import Detections
-
+    at least `conf`. Batches of `batch` images, the tail padded, each
+    brought to the host in one copy (`fetch_batch`)."""
     acc = EvalAccumulator(detector.cfg.num_classes)
-    if not hasattr(detector, "detect_batch"):  # stub detectors (tests)
+    if not hasattr(detector, "fetch_batch"):  # stub detectors (tests)
         for i in indices:
             item = _load(dataset, i)
             img = (item["images"] * 255).astype(np.uint8)
@@ -228,13 +221,11 @@ def evaluate_detector(
                           item["boxes"][gt_m], item["classes"][gt_m])
         return acc.compute()
     for items, imgs in padded_batches(dataset, indices, batch):
-        out = detector.detect_batch(imgs)
-        valid, boxes, scores, classes = host_detections(
-            out if isinstance(out, Detections) else out[0])
+        h = detector.fetch_batch(imgs)
         for j, it in enumerate(items):
-            keep = valid[j] & (scores[j] >= conf)
+            keep = h.valid[j] & (h.scores[j] >= conf)
             gt_m = it["mask"]
-            acc.add_image(boxes[j][keep], scores[j][keep], classes[j][keep],
+            acc.add_image(h.boxes[j][keep], h.scores[j][keep], h.classes[j][keep],
                           it["boxes"][gt_m], it["classes"][gt_m])
     return acc.compute()
 
@@ -261,24 +252,24 @@ class _InTrainingBase:
     BATCH = 8
 
     def __init__(self, cfg, imgsz: int, conf: float, device, dtype, **core_kw):
-        from ..core.device import resolve_device
+        from ..core.device import compute_dtype, resolve_device
         from ..models.detector import DetectCore
 
         self.cfg, self.imgsz, self.conf = cfg, imgsz, conf
         self.device = resolve_device(device)
-        self.dtype = dtype or (torch.bfloat16 if self.device.type == "cuda"
-                               else torch.float32)
+        self.dtype = compute_dtype(self.device, dtype)
         self.core = DetectCore(cfg, imgsz=imgsz, frame_hw=(imgsz, imgsz),
                                conf=conf, rect=False, dtype=self.dtype,
                                **core_kw)
 
     def _outputs(self, model, dataset, indices):
-        """(items, the core's output) per padded batch, `model` folded
-        once into a copy on the device."""
+        """(items, the core's output on the host, a HostBatch) per padded
+        batch, `model` folded once into a copy on the device."""
         fused = inference_copy(model, self.device, self.dtype)
         for items, imgs in padded_batches(dataset, indices, self.BATCH):
             with torch.inference_mode():
-                yield items, self.core(fused, torch.from_numpy(imgs).to(self.device))
+                out = self.core(fused, torch.from_numpy(imgs).to(self.device))
+            yield items, self.core.to_host(out)
 
 
 class InTrainingEvaluator(_InTrainingBase):
@@ -295,12 +286,11 @@ class InTrainingEvaluator(_InTrainingBase):
         """Metrics of YOLOv8 `model` (training form, BN unfolded; left
         unchanged) on `dataset`'s `indices`."""
         acc = EvalAccumulator(self.cfg.num_classes)
-        for items, det in self._outputs(model, dataset, indices):
-            valid, boxes, scores, classes = host_detections(det)
+        for items, h in self._outputs(model, dataset, indices):
             for j, it in enumerate(items):
-                v = valid[j]
+                v = h.valid[j]
                 gt_m = it["mask"]
-                acc.add_image(boxes[j][v], scores[j][v], classes[j][v],
+                acc.add_image(h.boxes[j][v], h.scores[j][v], h.classes[j][v],
                               it["boxes"][gt_m], it["classes"][gt_m])
         return acc.compute()
 
@@ -319,9 +309,8 @@ class InTrainingPoseEvaluator(_InTrainingBase):
         """PCK and mean keypoint error of YOLOv8-pose `model` (training
         form; left unchanged) on `dataset`'s `indices`."""
         acc = PoseEvalAccumulator()
-        for items, (_, kpts) in self._outputs(model, dataset, indices):
-            kpts = kpts.cpu().numpy()
+        for items, h in self._outputs(model, dataset, indices):
             for j, it in enumerate(items):
-                acc.add_image(kpts[j], it["keypoints"][0],
+                acc.add_image(h.block[j], it["keypoints"][0],
                               (self.imgsz, self.imgsz))
         return acc.compute()

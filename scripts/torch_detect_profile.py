@@ -3,17 +3,18 @@
 
     python3 scripts/torch_detect_profile.py [--track | --teams | --puck | --rink] [--out F]
 
-Runs `Detector.detect_batch` (the shipped YOLOv8x player detector, bf16)
+Runs `Detector.fetch_batch` (the shipped YOLOv8x player detector, bf16)
 on seeded synthetic 1080p frames (736x1280 network input; the frames of
 chip_smoke.py), 8 frames per batch, under torch.profiler for 10 batches
 after 3 warm-up batches, and reports from that one trace:
 
 - the device time of each stage of the step per batch, from the step's
   own `record_function` ranges (upload, letterbox, forward, decode,
-  nms_candidates, nms_select_unmap), and for nms_suppress from the
-  suppression kernel's own events by name: the trace does not link a
-  kernel launched through the kernel's ctypes library to the range it was
-  launched in;
+  nms_candidates, nms_select_unmap, pack: the step's result laid out
+  for its one copy to the host, `Detector.fetch_batch`), and for
+  nms_suppress from the suppression kernel's own events by name: the
+  trace does not link a kernel launched through the kernel's ctypes
+  library to the range it was launched in;
 - the device busy share: the device time of all kernels and copies over
   the wall time of the profiled loop;
 - the host-to-device copies per batch (the frames are one; the step's
@@ -24,7 +25,7 @@ With `--track` it profiles the fused detect + track step instead,
 `Detector.detect_track_batch` with the track state carried from batch to
 batch (T = 128, D = 64), over 104 frames of the same scene, and adds:
 
-- the device ms of the `tracker_scan` and `pack` ranges, and the host ms
+- the device ms of the `tracker_scan` range, and the host ms
   of the `tracker_scan` range (its first host sync waits for the detect
   work queued before it, so this range holds some of the detector's
   device time as well);
@@ -55,15 +56,16 @@ With `--puck` it profiles PUCK_DETECTION's step instead,
 tiles of 640 per 1080p frame, so 64 tiles per batch of 8) on
 chip_smoke.py's frames with the drawn puck: the ranges upload, slice
 (the tiles cut on the device), letterbox, forward, decode,
-nms_candidates, nms_select_unmap and merge (the cross-tile merge), and
+nms_candidates, nms_select_unmap, merge (the cross-tile merge) and pack, and
 the suppression kernel's device time at each of its two call sites per
 batch (its launches in time order alternate per-tile NMS, merge), with
 the busy share, copies and top kernels as above.
 
 With `--rink` it profiles the dual step of the rink path instead,
-`DualDetector.run` as TEAM_CLASSIFICATION with the 2D map runs it (the
-player branch with the team branch, then the YOLOv8s-pose rink model on
-the 512 square, packed into one (8, 64 * 11 + 168) copy to the host), on
+`DualDetector.fetch_batch` as TEAM_CLASSIFICATION with the 2D map runs
+it (the player branch with the team branch, then the YOLOv8s-pose rink
+model on the 512 square, packed into one (8, 64 + 16, 11) copy to the
+host), on
 chip_smoke.py's frames with the rink drawn under the players: the detect
 ranges, team_features, rink_letterbox, rink_forward, rink_decode and pack,
 the suppression kernel by name (one launch per batch), with the busy
@@ -113,13 +115,14 @@ from hockey_tpu_torch.tracking.device_tracker import init_state  # noqa: E402
 ITERS = 10
 WARMUP = 3
 STAGES = ("upload", "letterbox", "forward", "decode", "nms_candidates",
-          "nms_suppress", "nms_select_unmap")
-TRACK_STAGES = STAGES + ("tracker_scan", "pack")
-TEAM_STAGES = STAGES + ("team_features", "tracker_scan", "pack")
+          "nms_suppress", "nms_select_unmap", "pack")
+TRACK_STAGES = STAGES + ("tracker_scan",)
+TEAM_STAGES = STAGES + ("team_features", "tracker_scan")
 PUCK_STAGES = ("upload", "slice", "letterbox", "forward", "decode",
-               "nms_candidates", "nms_suppress", "nms_select_unmap", "merge")
+               "nms_candidates", "nms_suppress", "nms_select_unmap", "merge",
+               "pack")
 RINK_STAGES = STAGES + ("team_features", "rink_letterbox", "rink_forward",
-                        "rink_decode", "pack")
+                        "rink_decode")
 ALONE_TURNS = 4
 
 
@@ -195,7 +198,7 @@ def main() -> int:
         frames = rink_scene(seed=0, n=BATCH)
 
         def step(b):
-            det.run(frames)[3].cpu()  # the one copy to the host
+            det.fetch_batch(frames)  # the one copy to the host
     elif args.puck:
         det = SlicedDetector(cfg, FRAME_HW, device="cuda", dtype=torch.bfloat16)
         frames = puck_scene(seed=0, n=BATCH)
@@ -222,7 +225,7 @@ def main() -> int:
         frames = synthetic_frames(seed=0, n=BATCH)
 
         def step(b):
-            det.detect_batch(frames).boxes.cpu()
+            det.fetch_batch(frames)  # the one copy to the host
     for b in range(WARMUP):  # warm-up: cuDNN algorithm choice, kernel build
         step(b)
     torch.cuda.synchronize()

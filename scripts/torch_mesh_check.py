@@ -171,7 +171,7 @@ def main() -> int:
                      device="cuda", dtype=torch.bfloat16)
     frames8 = C.synthetic_frames(seed=0, n=C.BATCH)
     ref = det.detect_batch(frames8)
-    dets8 = [C.HostDetections.from_padded(ref, i) for i in range(C.BATCH)]
+    dets8 = [d for d, _, _ in C.fetch(C.pack(ref)).rows()]
     batches = C.mesh_batches(C.MESH_STEPS, "cuda")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{C.free_port()}",
                             world_size=1, rank=0)

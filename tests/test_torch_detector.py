@@ -21,9 +21,10 @@ from hockey_tpu.models.yolov8 import MODEL_ZOO as JAX_ZOO
 from hockey_tpu.train.scenes import render_scene
 from hockey_tpu_torch.core.config import Config, ProcessingMode
 from hockey_tpu_torch.models.checkpoint import shipped_weights_path
-from hockey_tpu_torch.models.detector import Detector, HostDetections
+from hockey_tpu_torch.models.detector import Detector, HostDetections, fetch, pack
+from hockey_tpu_torch.ops.nms import Detections
 from hockey_tpu_torch.ops.nms_kernel import suppress_reference
-from hockey_tpu_torch.pipeline import VideoProcessor
+from hockey_tpu_torch.pipeline import VideoProcessor, unpack_tracked
 
 PLAYER = "hockey-player-detection"
 
@@ -71,6 +72,56 @@ def test_detect_core_halves_compose(scenes):
     for a, b in zip(whole, halves):
         assert torch.equal(a, b)
     assert int(whole.valid.sum()) >= 2
+
+
+@pytest.mark.parametrize("layout", ["plain", "team", "fused", "dual"])
+def test_handoff_round_trip_is_bit_exact(layout):
+    """pack -> fetch -> rows on CPU tensors, for each layout of the detect
+    steps' one handoff: plain detections, team features as per-slot
+    columns, the fused step's track ids (some detections untracked), the
+    dual step's keypoints as the per-frame block. Frame 0 is empty, frame
+    1 full; every host array equals the device's bit for bit."""
+    rng = np.random.default_rng(7)
+    b, d = 2, 9
+    full = np.array([[False] * d, [True] * d])
+    boxes = np.where(full[..., None], rng.normal(0, 700, (b, d, 4)), 0).astype(np.float32)
+    scores = np.where(full, rng.uniform(0, 1, (b, d)), -1).astype(np.float32)
+    classes = np.where(full, rng.integers(0, 4, (b, d)), -1).astype(np.int32)
+    det = Detections(*map(torch.from_numpy, (boxes, scores, classes, full)))
+    feats = rng.normal(0, 1, (b, d, 4)).astype(np.float32)
+    kpts = rng.normal(0, 900, (b, 56, 3)).astype(np.float32)
+    ids = np.where(full, rng.integers(0, 2 ** 24, (b, d)), -1).astype(np.int32)
+    ids[1, ::3] = -1  # detections no emittable track holds
+    kw = {"plain": {}, "team": dict(feats=feats), "fused": dict(ids=ids, feats=feats),
+          "dual": dict(feats=feats, block=kpts)}[layout]
+    packed = pack(det, **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert packed.dtype == torch.float32 and packed.shape[:2] == (
+        b, d + (56 if layout == "dual" else 0))
+    host = fetch(packed, kpts.shape[1:] if layout == "dual" else None)
+    want_ids = ids if layout == "fused" else np.where(full, 0, -1).astype(np.int32)
+    for got, want in ((host.boxes, boxes), (host.scores, scores),
+                      (host.classes, classes), (host.ids, want_ids),
+                      (host.valid, want_ids >= 0)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert (host.feats is None) == ("feats" not in kw)
+    assert (host.block is None) == (layout != "dual")
+    if host.feats is not None:
+        assert np.array_equal(host.feats, feats)
+    if host.block is not None:
+        assert np.array_equal(host.block, kpts)
+    rows = host.rows()
+    assert len(rows) == b
+    for i, (h, rid, rf) in enumerate(rows):
+        keep = want_ids[i] >= 0
+        assert isinstance(h, HostDetections) and len(h) == keep.sum() == len(rid)
+        assert keep.sum() == (0 if i == 0 else d - (3 if layout == "fused" else 0))
+        for got, want in zip((*h, rid), (boxes, scores, classes, want_ids)):
+            assert np.array_equal(got, want[i][keep])
+        assert rf is None if host.feats is None else np.array_equal(rf, feats[i][keep])
+    if layout == "fused":  # the fused route's rows are the same rows
+        got = unpack_tracked((det, None, None, packed, None))
+        for g, (h, rid, rf) in zip(got, rows):
+            assert all(np.array_equal(x, y) for x, y in zip(g, (*h, rid, rf)))
 
 
 @pytest.fixture(scope="module")

@@ -23,7 +23,7 @@ from hockey_tpu.core.config import ProcessingMode as JaxMode  # noqa: E402
 from hockey_tpu.multiclip import MultiClipProcessor as JaxMultiClip  # noqa: E402
 from hockey_tpu.train.scenes import render_scene_sequence  # noqa: E402
 from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
-from hockey_tpu_torch.models.detector import Detector  # noqa: E402
+from hockey_tpu_torch.models.detector import Detector, fetch, pack  # noqa: E402
 from hockey_tpu_torch.multiclip import MultiClipProcessor  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
 from tests.test_multiclip import MultiStubDetector  # noqa: E402
@@ -44,6 +44,9 @@ class PortMultiStubDetector:
     def detect_batch(self, frames):
         self.calls += 1
         return padded([gt_detections(self.calls - 1)] * len(frames))
+
+    def fetch_batch(self, frames):
+        return fetch(pack(self.detect_batch(frames)))
 
 
 @pytest.fixture

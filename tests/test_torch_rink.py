@@ -199,21 +199,31 @@ def test_dual_detector_matches_jax(tiny_checkpoints, monkeypatch, teams):
     out = d.detect_batch(frames)
     assert suppress.launches == 0  # CPU tensors take the plain suppression
     det = out[0] if teams else out
+    # device tensors, as Detector.detect_batch returns; no keypoints yet
+    assert all(t.device == d.player.device for t in det)
+    assert d.last_keypoints is None
     assert_det_close(det, want_det)
     assert 4 <= int(det.valid.sum()) < 16  # some kept, some suppressed
+    # the batch's one copy to the host: the same detections, the keypoints
+    host = d.fetch_batch(frames)
+    np.testing.assert_array_equal(host.valid, det.valid.numpy())
+    np.testing.assert_array_equal(host.boxes, det.boxes.numpy())
+    np.testing.assert_array_equal(host.classes, det.classes.numpy())
     assert d.last_keypoints.shape == (2, 56, 3)
     assert_kpts_close(d.last_keypoints, want_k)
     if teams:
+        assert out[1].device == d.player.device
         got, ref = out[1].numpy(), np.asarray(want_f)
+        np.testing.assert_array_equal(host.feats, got)
         np.testing.assert_array_equal(got[..., 1], ref[..., 1])
         np.testing.assert_allclose(got[..., 0], ref[..., 0], rtol=0, atol=0.01)
         np.testing.assert_allclose(got[..., 2:], ref[..., 2:], rtol=0, atol=0.05)
-    # the step on the device: one packed row per frame, D * 11 or D * 7
-    # detection columns, then 56 * 3 keypoint values
+    # the step on the device: one packed tensor, D = 8 rows of 11 or 7
+    # columns, then the 56 keypoints' rows, zero-padded to as many
     packed = d.run(frames)[3]
-    assert packed.shape == (2, 8 * (11 if teams else 7) + 168)
-    host = d.detect(frames[1])
-    assert len(host) == int(det.valid[1].sum())
+    assert packed.shape == (2, 8 + 56, 11 if teams else 7)
+    one = d.detect(frames[1])
+    assert len(one) == int(det.valid[1].sum())
 
 
 # ---------------------------------------------------------------------------

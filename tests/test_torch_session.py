@@ -25,7 +25,7 @@ from hockey_tpu.core.session import save_run_state as jax_save  # noqa: E402
 from hockey_tpu.pipeline import VideoProcessor as JaxVideoProcessor  # noqa: E402
 from hockey_tpu_torch.core.config import Config, ProcessingMode  # noqa: E402
 from hockey_tpu_torch.core.session import load_run_state, save_run_state  # noqa: E402
-from hockey_tpu_torch.models.detector import HostDetections  # noqa: E402
+from hockey_tpu_torch.models.detector import HostDetections, fetch, pack  # noqa: E402
 from hockey_tpu_torch.ops.nms import Detections  # noqa: E402
 from hockey_tpu_torch.pipeline import VideoProcessor  # noqa: E402
 from hockey_tpu_torch.teams.facade import TeamClassifier  # noqa: E402
@@ -72,6 +72,9 @@ class PortStubDetector:
 
     def detect_batch(self, frames):
         return padded([self._next() for _ in range(len(frames))])
+
+    def fetch_batch(self, frames):
+        return fetch(pack(self.detect_batch(frames)))
 
 
 def port_config(**kw) -> Config:

@@ -24,6 +24,7 @@ import torch
 
 from hockey_tpu_torch.core import staging
 from hockey_tpu_torch.core.config import Config, ProcessingMode
+from hockey_tpu_torch.models.detector import fetch, pack
 from hockey_tpu_torch.ops.nms import Detections
 from hockey_tpu_torch.pipeline import VideoProcessor
 from hockey_tpu_torch.teams.base import host_crops
@@ -104,6 +105,9 @@ class _UploadStub:
         return Detections(torch.zeros(b, 4, 4), torch.full((b, 4), -1.0),
                           torch.full((b, 4), -1, dtype=torch.int32),
                           torch.zeros(b, 4, dtype=torch.bool))
+
+    def fetch_batch(self, frames):
+        return fetch(pack(self.detect_batch(frames)))
 
 
 def test_the_helper_counts_pageable_uploads_on_the_cpu_and_never_pins():

@@ -27,6 +27,19 @@ Phases, each announced on its own line with the elapsed seconds:
    kernel's device time per launch, call time, plain time and bound on
    the main path's own candidates; every batch must have been uploaded
    from page-locked staging (core/staging.py), none by the pageable copy;
+   the conv epilogue kernel must have launched 103 times a forward;
+4b. the conv epilogue kernel (csrc/conv_epilogue.cu) on every inference
+   conv of one YOLOv8x forward on the last batch: each conv's epilogue
+   bit-equal to the plain sequence (bias add, SiLU, residual add) on the
+   same operands, the forward bit-equal to the forward with the plain
+   epilogue and to the plain ops with the bias inside the conv (the same
+   check runs in phase 7 on the puck YOLOv8s's tiles and in phase 8 on
+   the rink YOLOv8s-pose at 512; the largest gap of all three is the
+   `kernels` line's `max_abs_err`); the `forward` range's device ms
+   against its kernels', which must hold the epilogue's; three times each, the
+   kernel's device ms a batch and the plain sequence's (`library_ms`), and
+   the bound (bytes at the card's memory rate); a `{"conv_epilogue": ...}`
+   JSON line;
 5. PLAYER_TRACKING: the same detector through
    VideoProcessor(mode=PLAYER_TRACKING).track_frames, the fused detect +
    track step (T = 128 tracks, D = 64 detections), three batches of 8; the
@@ -49,7 +62,9 @@ Phases, each announced on its own line with the elapsed seconds:
    crops, whose card logits must match the same net on the CPU in f32
    within 1e-3 with equal argmax; it prints the reads and the reader's
    host ms per batch; every batch must have been uploaded pinned, as in
-   phase 4; and these numbers, the upload counts too, as one JSON line;
+   phase 4; the conv epilogue must have launched once a conv of every
+   YOLOv8x and digit-net forward (phases 6-8 hold their paths to the same
+   count; the `kernels` line's `launches` is the sum); and these numbers, the upload counts too, as one JSON line;
 5b. the tracker's kernel (csrc/tracker_scan.cu) against the plain
    `tracker_scan_reference` on the card at the main path's shapes (T =
    128, D = 64, batches of 8), on phase 5's own detections and on a crowd
@@ -94,7 +109,8 @@ Phases, each announced on its own line with the elapsed seconds:
    sites; the per-tile top-256 candidate scores of the last batch from the
    card must be within 0.05 of an f32 CPU run, which must find the puck; the
    tracker's centre must lie within 16 px of the drawn puck on at least
-   3/4 of the frames after its 2-frame acquisition. It prints frames/s,
+   3/4 of the frames after its 2-frame acquisition; phase 4b's epilogue
+   check on the last batch's 64 tiles. It prints frames/s,
    ms per batch and these numbers as one JSON line;
 8. rink + 2D map: a VideoProcessor in TEAM_CLASSIFICATION with
    `show_2d_map=True` builds the dual step (models/dual.py: YOLOv8x bf16
@@ -112,7 +128,8 @@ Phases, each announced on its own line with the elapsed seconds:
    players within H_MEAN_FT / H_MAX_FT of each other; the CPU must read
    the scene (SCENE_KPTS keypoints, a homography within SCENE_H_FT of the
    known one); `RinkKeypointDetector.detect_keypoints_batch` runs once on
-   the same frames, its one NMS launch held to the plain version. It
+   the same frames, its one NMS launch held to the plain version; phase
+   4b's epilogue check on the rink model at the last batch's 512 input. It
    prints frames/s, the host ms per frame of the stages (keypoints,
    rink2d among them), the rink ranges' device ms and launches per batch
    (torch.profiler), and the kernel's device, call, plain and bound times
@@ -290,6 +307,7 @@ from hockey_tpu_torch.models.detector import (  # noqa: E402
     tracker_inputs,
 )
 from hockey_tpu_torch.models.dual import DualDetector  # noqa: E402
+from hockey_tpu_torch.models import layers  # noqa: E402
 from hockey_tpu_torch.models.layers import fuse_for_inference, trainable  # noqa: E402
 from hockey_tpu_torch.models.mobilenetv3 import (  # noqa: E402
     build_embedder,
@@ -309,7 +327,8 @@ from hockey_tpu_torch.models.yolov8 import (  # noqa: E402
     init_params,
     params_to_jax,
 )
-from hockey_tpu_torch.ops.letterbox import letterbox_batch  # noqa: E402
+from hockey_tpu_torch.ops import conv_epilogue as ce  # noqa: E402
+from hockey_tpu_torch.ops.letterbox import letterbox_batch, letterbox_rect_batch  # noqa: E402
 from hockey_tpu_torch.ocr.digits import (  # noqa: E402
     DigitNet,
     DigitTrainer,
@@ -394,6 +413,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_NAME = "nms_suppress_kernel"  # the CUDA kernel's name in a trace
 TRACKER_KERNEL_NAME = "tracker_scan_kernel"
+EPILOGUE_KERNEL_NAME = "conv_epilogue_kernel"
+# the inference convs of a forward, each one launch of the conv epilogue
+# kernel: the player YOLOv8x, the puck YOLOv8s, the rink YOLOv8s-pose and
+# the jersey-number reader's digit net
+EPILOGUE_CONVS = {"hockey-player-detection": 103, "hockey-puck-detection": 63,
+                  "hockey-detection": 72, "digits": 7}
+EPILOGUE = {"launches": {}, "sites": {}}  # the main paths' launches by phase,
+# and each checked forward's numbers by site
 # phase 8's tolerances, bf16 on the card against f32 on the CPU, in 1080p
 # frame px (the rink model sees the frame at 512 / 1920 of its size, so
 # 24 px is 6.4 px at its input): keypoints confident (>= 0.3) on both
@@ -1006,6 +1033,173 @@ def tracker_bound(state: TrackState, x) -> tuple:
     return 1e3 * nbytes / HBM_BYTES_PER_S, nbytes
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a float's -0 and +0 differ here)."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def profiled_device_ms(fn, kernel=None) -> float:
+    """Device ms of one call of fn() in a torch.profiler trace: the
+    kernels whose name holds `kernel`, or every kernel."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and (kernel is None or kernel in e.key)]
+    return sum(e.self_device_time_total for e in hits) / 1e3
+
+
+def gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b|, in f32."""
+    return float((a.float() - b.float()).abs().max())
+
+
+def epilogue_check(site: str, model, x: torch.Tensor, convs: int):
+    """The conv epilogue kernel (csrc/conv_epilogue.cu) on every inference
+    conv of one forward of `model` on `x` (NHWC, on the card): `convs`
+    launches; each conv's epilogue bit-equal to the plain sequence (bias
+    add, SiLU, residual add) on the same operands; the forward with the
+    kernel bit-equal to the forward with the plain epilogue and to the
+    plain ops with the bias inside the conv. Returns the convs' (y before
+    its epilogue, bias, act, residual) and the largest |kernel - plain|
+    over the convs and the forward's maps."""
+    calls = []
+
+    def record(y, bias, act, residual=None):
+        calls.append((y.clone(), bias, act, residual))
+        return ce.epilogue(y, bias, act, residual)
+
+    def forward(epilogue, routed=True):
+        saved = layers.conv_epilogue, layers.on_card_inference
+        layers.conv_epilogue = epilogue
+        if not routed:
+            layers.on_card_inference = lambda *a: False
+        try:
+            with torch.inference_mode():
+                return forward_raw(model, x)
+        finally:
+            layers.conv_epilogue, layers.on_card_inference = saved
+
+    ce.epilogue.launches = 0
+    got = forward(record)
+    launches = ce.epilogue.launches
+    if launches != convs or len(calls) != convs:
+        raise AssertionError(f"{site}: {launches} epilogue launches and "
+                             f"{len(calls)} convs a forward, not {convs}")
+    err = 0.0
+    for i, (y, bias, act, r) in enumerate(calls):
+        with torch.inference_mode():
+            k = ce.epilogue(y.clone(), bias, act, r)
+            p = ce.conv_epilogue_reference(y.clone(), bias, act, r)
+        err = max(err, gap(k, p))
+        if not bits_equal(k, p):
+            raise AssertionError(f"{site}: conv {i} {tuple(y.shape)}: kernel != plain")
+    plain = forward(ce.conv_epilogue_reference)
+    replaced = forward(None, routed=False)
+    for key, maps in got.items():
+        for a, b, c in zip(maps, plain[key], replaced[key]):
+            err = max(err, gap(a, b), gap(a, c))
+            if not (bits_equal(a, b) and bits_equal(a, c)):
+                raise AssertionError(f"{site}: forward {key}: kernel != plain epilogue")
+    print(f"{site}: {len(calls)} conv epilogues at {tuple(x.shape)} bit-equal to "
+          "the plain sequence; the forward bit-equal to the plain epilogue and to "
+          f"the bias inside the conv: True (largest gap {err})", flush=True)
+    return calls, err
+
+
+def count_epilogue(site: str, want: int) -> None:
+    """Holds the conv epilogue's launches since the last reset to `want`
+    (the convs of the main path's forwards) and records them."""
+    n = ce.epilogue.launches
+    print(f"conv_epilogue launches over the {site} path: {n}", flush=True)
+    if n != want:
+        raise AssertionError(f"the epilogue kernel launched {n} times over the "
+                             f"{site} path, not {want} (one a conv of each forward)")
+    EPILOGUE["launches"][site] = n
+
+
+def epilogue_site(site: str, model, x: torch.Tensor, convs: int) -> None:
+    """`epilogue_check` at a site of a later phase; records its numbers."""
+    calls, err = epilogue_check(site, model, x, convs)
+    EPILOGUE["sites"][site] = {
+        "convs": len(calls), "input": list(x.shape), "max_abs_err": err,
+        "vector_launches": sum(ce.vectorized(y, b, r, ce.check(y, b, r))
+                               for y, b, _, r in calls)}
+
+
+def epilogue_phase(det, frames) -> dict:
+    """Phase 4b: `epilogue_check` on one YOLOv8x forward at the detect
+    cell's shapes (a batch of 8 1080p frames at 736x1280); the `forward`
+    range's device ms against the sum of its kernels (the kernel's
+    launches must be linked to the range). Three times each: the kernel's
+    device ms a batch, and the plain sequence's (`library_ms`, PyTorch's
+    own bias add, SiLU and residual add); the bound: the bytes over the
+    card's memory rate."""
+    x = letterbox_rect_batch(torch.as_tensor(frames[-BATCH:]).to("cuda"),
+                             det.imgsz, 32, torch.bfloat16)
+    calls, err = epilogue_check("detect", det.model, x,
+                                EPILOGUE_CONVS["hockey-player-detection"])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode(), record_function("forward"):
+            forward_raw(det.model, x)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    range_ms = sum(e.device_time_total for e in averages
+                   if e.key == "forward" and e.device_type == DeviceType.CPU) / 1e3
+    kernels_ms = sum(e.self_device_time_total for e in averages  # the range's
+                     if e.device_type == DeviceType.CUDA  # own span on the
+                     and e.key != "forward") / 1e3  # device is no kernel
+    epi_ms = sum(e.self_device_time_total for e in averages
+                 if e.device_type == DeviceType.CUDA
+                 and EPILOGUE_KERNEL_NAME in e.key) / 1e3
+
+    def run_all(fn):
+        ys = [y.clone() for y, *_ in calls]
+        torch.cuda.synchronize()
+
+        def go():
+            with torch.inference_mode():
+                for y, (_, bias, act, r) in zip(ys, calls):
+                    fn(y, bias, act, r)
+        return go
+
+    kernel_ms, library_ms = [], []
+    for _ in range(3):
+        kernel_ms.append(profiled_device_ms(run_all(ce.epilogue), EPILOGUE_KERNEL_NAME))
+        library_ms.append(profiled_device_ms(run_all(ce.conv_epilogue_reference)))
+    nbytes = sum(ce.bound_bytes(y, bias, r) for y, bias, _, r in calls)
+    out = {
+        "convs": len(calls),
+        "max_abs_err": err,
+        "vector_launches": sum(ce.vectorized(y, b, r, ce.check(y, b, r))
+                               for y, b, _, r in calls),
+        "ms": [round(v, 4) for v in kernel_ms],
+        "library_ms": [round(v, 4) for v in library_ms],
+        "bound_ms": round(1e3 * nbytes / HBM_BYTES_PER_S, 4),
+        "bytes": nbytes,
+        "forward_range_ms": round(range_ms, 4),
+        "forward_kernels_ms": round(kernels_ms, 4),
+        "forward_epilogue_ms": round(epi_ms, 4),
+        "epilogue_in_range": abs(range_ms - kernels_ms) < 0.5 * epi_ms,
+    }
+    print(f"epilogue a batch of {BATCH} at 736x1280: kernel {out['ms']} ms, "
+          f"plain sequence (library) {out['library_ms']} ms, bound "
+          f"{out['bound_ms']} ms ({nbytes} bytes); forward range "
+          f"{out['forward_range_ms']} ms of device time against its kernels' "
+          f"{out['forward_kernels_ms']} ms (epilogue {out['forward_epilogue_ms']} ms, "
+          f"in the range: {out['epilogue_in_range']})", flush=True)
+    print(json.dumps({"conv_epilogue": out}), flush=True)
+    if not out["epilogue_in_range"]:
+        raise AssertionError("the epilogue's launches are not linked to the "
+                             "`forward` range")
+    EPILOGUE["sites"]["detect"] = out
+    return out
+
+
 def tracker_kernel_phase(inputs, kwargs, capacity: int) -> dict:
     """Phase 5b: the tracker's kernel against the plain version on the
     card, on `inputs` (phase 5's detections) and on a crowd; returns the
@@ -1142,6 +1336,7 @@ def puck_phase(config, max_err):
         raise AssertionError("the puck path is not 8 bf16 tiles per frame")
 
     suppress.launches = 0
+    ce.epilogue.launches = 0
     results, marks = [], []
     t = time.perf_counter()
     for r in vp.puck_frames(iter(frames)):
@@ -1149,6 +1344,11 @@ def puck_phase(config, max_err):
         if len(results) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_p = suppress.launches
+    count_epilogue("puck", EPILOGUE_CONVS[config.puck_model_name] * N_BATCHES)
+    tiles = sd.tiles(torch.as_tensor(frames[-BATCH:]).to("cuda"))
+    epilogue_site("puck", sd.detector.model,
+                  letterbox_rect_batch(tiles, sd.detector.imgsz, 32, torch.bfloat16),
+                  EPILOGUE_CONVS[config.puck_model_name])
     fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     print(f"ms per batch of {BATCH}: {[round(x, 2) for x in batch_ms]}", flush=True)
@@ -1274,6 +1474,7 @@ def team_phase(config, frames, max_err, track_fps):
           flush=True)
 
     suppress.launches = 0
+    ce.epilogue.launches = 0
     scan_kernel.reset()
     results, outs, marks = [], [], []
     t = time.perf_counter()
@@ -1284,6 +1485,7 @@ def team_phase(config, frames, max_err, track_fps):
         if len(results) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_c = suppress.launches
+    count_epilogue("classify", EPILOGUE_CONVS[config.player_model_name] * N_BATCHES)
     tracker_launches_c = scan_kernel.launches
     if tracker_launches_c != N_BATCHES:
         raise AssertionError(f"the tracker kernel launched {tracker_launches_c} "
@@ -1458,6 +1660,7 @@ def rink_phase(config, max_err):
     vp.tracker.update = recording_update
     vp.timers.reset()
     suppress.launches = 0
+    ce.epilogue.launches = 0
     results, hs, marks = [], [], []
     t = time.perf_counter()
     for r in vp.classify_frames(iter(frames)):
@@ -1467,6 +1670,12 @@ def rink_phase(config, max_err):
         if len(results) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_d = suppress.launches
+    count_epilogue("dual", N_BATCHES * (EPILOGUE_CONVS[config.player_model_name]
+                                        + EPILOGUE_CONVS[config.hockey_model_name]))
+    epilogue_site("pose", dual.rink_model,
+                  letterbox_batch(torch.as_tensor(frames[-BATCH:]).to("cuda"),
+                                  dual.step.rink_imgsz, dual.player.dtype),
+                  EPILOGUE_CONVS[config.hockey_model_name])
     dual.fetch_batch = fetch_batch
     vp.tracker.update = update
     fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
@@ -3070,6 +3279,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     suppress.launches = 0
+    ce.epilogue.launches = 0
     staging.stats.reset()
     dets, marks = [], []
     t = time.perf_counter()
@@ -3078,6 +3288,7 @@ def main() -> int:
         if len(dets) % BATCH == 0:
             marks.append(time.perf_counter())
     launches = suppress.launches
+    count_epilogue("detect", EPILOGUE_CONVS[config.player_model_name] * N_BATCHES)
     uploads = staging.stats.as_dict()
     batch_ms = [1e3 * (b - a) for a, b in zip([t] + marks[:-1], marks)]
     steady_fps = BATCH * (N_BATCHES - 1) / (marks[-1] - marks[0])
@@ -3150,6 +3361,10 @@ def main() -> int:
     if min(fwd, bwd) < 0.8:
         raise AssertionError("bf16 card detections disagree with the f32 reference")
 
+    phase("4b conv epilogue: bias, SiLU and residual of every YOLOv8x conv in "
+          "one kernel, against the plain sequence")
+    epilogue_phase(det, frames)
+
     phase("5 PLAYER_TRACKING: fused detect + track, VideoProcessor.track_frames "
           "(T=128, D=64)")
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3168,6 +3383,7 @@ def main() -> int:
         lambda mod, inp, out: ocr_calls.append((inp[0], *out)))
     st = assignment.stats
     suppress.launches = 0
+    ce.epilogue.launches = 0
     st.syncs = st.rounds = st.fill_steps = 0
     scan_kernel.reset()
     staging.stats.reset()
@@ -3180,6 +3396,8 @@ def main() -> int:
         if len(rows) % BATCH == 0:
             marks.append(time.perf_counter())
     launches_t = suppress.launches
+    count_epilogue("track", EPILOGUE_CONVS[config.player_model_name] * N_BATCHES
+                   + EPILOGUE_CONVS["digits"] * len(ocr_calls))
     uploads_t = staging.stats.as_dict()
     check_uploads("track_frames", uploads_t)
     syncs = st.syncs
@@ -3343,6 +3561,7 @@ def main() -> int:
 
     phase("16 results")
     print(f"total wall time {time.perf_counter() - T0:.1f} s", flush=True)
+    epilogue = EPILOGUE["sites"]["detect"]
     print(json.dumps({"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -3367,6 +3586,22 @@ def main() -> int:
                                                   "bound_ms", "bound_by")},
         "library_ms": None,
         "sites": tracker_kernel,
+    }, {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "hockey_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses the epilogue into the conv
+        # the main paths of phases 4 to 8, each counted from a reset just
+        # before it
+        "launches": sum(EPILOGUE["launches"].values()),
+        "max_abs_err": max(v["max_abs_err"] for v in EPILOGUE["sites"].values()),
+        "ms": sorted(epilogue["ms"])[1],  # device ms a batch of 8 frames
+        "bound_ms": epilogue["bound_ms"],
+        "bound_by": "bytes",
+        "plain_ms": sorted(epilogue["library_ms"])[1],  # the plain version is
+        "library_ms": sorted(epilogue["library_ms"])[1],  # PyTorch's three ops
+        "launches_by_path": EPILOGUE["launches"],
+        "sites": EPILOGUE["sites"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv_epilogue import epilogue as conv_epilogue
+
 BN_EPS = 1e-3  # ultralytics BatchNorm2d eps (hockey_tpu layers.py:111)
 
 
@@ -63,12 +65,24 @@ def batch_var_mean(y: torch.Tensor, stats: list):
     return torch.var_mean(y, dim=(0, 2, 3), unbiased=False)
 
 
+def on_card_inference(x: torch.Tensor, *tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a conv's epilogue takes the CUDA kernel (ops/conv_epilogue.py):
+    its input is on the card and no autograd graph is wanted (grad off, or
+    nothing requires it). The CPU keeps PyTorch's conv with its bias inside,
+    and training keeps the plain ops, which record the graph."""
+    return x.is_cuda and not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, *tensors)))
+
+
 class Conv(nn.Module):
     """Conv -> BN -> SiLU with symmetric k//2 padding
     (hockey_tpu layers.py:94-139 `_conv2d` + `conv_apply`). The kernel and
     bias are cast to the input's dtype, so f32 masters run a bf16 forward;
     BN statistics are f32. `path` is the conv's name in the JAX tree,
-    set by the model that holds it."""
+    set by the model that holds it. The inference form on the card
+    (`on_card_inference`) runs the conv without its bias and then the
+    bias, SiLU and residual as one CUDA kernel, bit-equal to the plain
+    ops that every other forward runs."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1,
                  bn: bool = True, bias: bool = False, act: bool = True):
@@ -79,8 +93,14 @@ class Conv(nn.Module):
         self.register_buffer("b", torch.zeros(cout) if bias else None)
         self.path = "conv"
 
-    def forward(self, x: torch.Tensor, stats: Optional[list] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: Optional[list] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv's output, plus `residual` (a bottleneck's input) where
+        given."""
         b = None if self.b is None else self.b.to(x.dtype)
+        if self.bn is None and stats is None and on_card_inference(x, self.w, b, residual):
+            y = F.conv2d(x, self.w.to(x.dtype), None, self.stride, self.pad)
+            return conv_epilogue(y, b, self.act, residual)
         y = F.conv2d(x, self.w.to(x.dtype), b, self.stride, self.pad)
         if self.bn is not None:
             if stats is None:
@@ -92,7 +112,8 @@ class Conv(nn.Module):
                 bias = self.bn.bias - mean * scale
             y = (y * scale.to(y.dtype)[:, None, None]
                  + bias.to(y.dtype)[:, None, None])
-        return F.silu(y) if self.act else y
+        y = F.silu(y) if self.act else y
+        return y if residual is None else residual + y
 
 
 def trainable(model: nn.Module, kinds=(Conv,)) -> nn.Module:
@@ -153,8 +174,7 @@ class Bottleneck(nn.Module):
         self.add = add
 
     def forward(self, x, stats=None):
-        y = self.cv2(self.cv1(x, stats), stats)
-        return x + y if self.add else y
+        return self.cv2(self.cv1(x, stats), stats, x if self.add else None)
 
 
 class C2f(nn.Module):
